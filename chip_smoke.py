@@ -3,24 +3,40 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels (K1 strip compositor, K2 LBS column
-   gather) from `dimo_tpu_torch/csrc/` with nvcc, at first use.
+1. Builds the port's CUDA kernels (K1 strip compositor and K3 its
+   backward, K2 LBS column gather and K4 its backward) from
+   `dimo_tpu_torch/csrc/` with nvcc, at first use.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship render gives it: K2 bit-exact; K1 7-channel at
    atol 1e-5; K1 3-channel early exit against the plain exhaustive
-   composite at 5e-4 (the T_EXIT tail bound).
+   composite at 5e-4 (the T_EXIT tail bound); K3 per list slot at 1e-4 of
+   each lane's max |grad| (only the order of the per-entry sums differs;
+   an alpha replayed differently from K1 would show as an O(1) slot);
+   K4 at 1e-5 of each entry's sum of |g| (atomics add in any order).
 3. Checks a small render on the card against the same render on the CPU
    (plain versions): 1e-4, except the rare pixel where one entry sits on
-   the 1/255 alpha cut.
-4. Drives the main path through the port's entry points at full width:
-   the flagship stage-2 scene (100k Gaussians, 512 control points,
-   latent 32), KNN once, a 21-frame 7-channel sequence at 512^2 with
-   capacity 1024 (t = i/21, the shape of `render_sequence`), then 51
-   3-channel renders at t=0 (one warm-up and 50 timed, the shape of
-   `run_test_fps`). Every launch counter is zeroed just before and read
-   just after; each kernel must have launched once per render.
-5. Prints the per-stage breakdown (CUDA events), a `kernels` JSON line,
-   the card's name and power limit, and last the device line.
+   the 1/255 alpha cut. Then a small train step (2,048 Gaussians, 32
+   control points, latent 8, 2 x 1 x 2 renders at 256^2): loss (rtol
+   1e-4) and every parameter's gradient (relative L2 1e-3), card vs CPU.
+4. Drives the serving path through the port's entry points at full
+   width, under torch.no_grad(): the flagship stage-2 scene (100k
+   Gaussians, 512 control points, latent 32), KNN once, a 21-frame
+   7-channel sequence at 512^2 with capacity 1024 (t = i/21, the shape of
+   `render_sequence`), then 51 3-channel renders at t=0 (one warm-up and
+   50 timed, the shape of `run_test_fps`). Every launch counter is zeroed
+   just before and read just after; each kernel must have launched once
+   per render.
+5. Prints the per-stage breakdown of a render (CUDA events).
+6. Drives the training path at full width, the shape of
+   `scripts/bench_train.py`: the flagship scene, 4 motions x 2 views x 2
+   frames = 16 renders at 512^2 per step, capacity 1024, ARAP, chamfer
+   guidance and both smoothness terms on, from step 300 (every gate
+   open); one warm-up and 5 timed steps. Checks a finite loss, no skipped
+   step, every group with a learning rate moved, and K1 ch7 = K2 = K3 =
+   K4 = 16 launches per step (counters zeroed just before, read just
+   after). Prints the step time and its CUDA-event split.
+7. Prints a `kernels` JSON line, the card's name and power limit, and
+   last the device line.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -38,10 +54,17 @@ HBM_BW = 3.35e12       # H100 SXM device memory, bytes/s
 # K1 float32 ops per (pixel, list entry): quadratic 16, exp2 1, cut/clamp 2,
 # w 1, T 1, and 2 per composited channel
 K1_OPS_BASE = 21
+# K3 float32 ops per (pixel, list entry): alpha replay 19 (as K1), 1/(1-a)
+# 2, T 1, w 1, CG 13, dalpha 3, suffix 2, gate 2, dpower 3, the ten
+# per-pixel terms 9, and one add per term into the strip's sums 10
+K3_OPS = 65
 SEQ_FRAMES = 21
 FPS_ROUNDS = 50
 WIDTH = HEIGHT = 512
 CAPACITY = 1024
+TRAIN_SHAPE = (4, 2, 2)        # motions, views, frames (bench_train.py)
+TRAIN_STEPS = 5                # timed, after one warm-up
+TRAIN_START = 300              # depth/normal (> 200) and ARAP (< 2000) open
 
 
 def fail(msg: str) -> None:
@@ -79,6 +102,59 @@ def ptxas_summary(log: str) -> list[str]:
             if "registers" in ln or "spill" in ln]
 
 
+def train_batch(params, shape, res: int, device, seed: int) -> dict:
+    """`scripts/bench_train.py`'s batch on the port: cameras at numpy
+    RandomState(seed) azimuths, radius 2.0, fov 33.9 deg; random uint8 GT
+    images and masks at the render size; guidance = c_xyz + seeded noise."""
+    import numpy as np
+    import torch
+    from dimo_tpu_torch.utils import cameras
+    n_m, n_v, n_f = shape
+    b = n_m * n_v * n_f
+    rng = np.random.RandomState(seed)
+    fov = float(np.deg2rad(33.9))
+    cams = [cameras.Camera.from_c2w(
+        cameras.orbit_camera(0, rng.uniform(0, 360), 2.0), fov, fov)
+        for _ in range(b)]
+    c = params.c_xyz.detach().cpu().numpy()
+    dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {
+        "camera": cams, "times": rng.rand(b).astype(np.float32),
+        "latent_idx": np.repeat(np.arange(n_m), n_v * n_f).astype(np.int32),
+        "mse_w": torch.ones(b, device=device),
+        "gt_image": dev(rng.randint(0, 255, (b, res, res, 3), np.uint8)),
+        "gt_mask": dev(rng.randint(0, 255, (b, res, res), np.uint8)),
+        "guidance": dev((c[None] + rng.randn(b, *c.shape) * 0.01
+                         ).astype(np.float32)),
+    }
+
+
+def small_train_grads(device) -> tuple:
+    """Loss and per-leaf gradients of one small s2 step (2,048 Gaussians,
+    32 control points, latent 8, 2 x 1 x 2 renders at 256^2), with seeded
+    TimeNet heads so every layer carries gradient."""
+    import numpy as np
+    import torch
+    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.train import optim
+    from dimo_tpu_torch.train.step import LossConfig, init_state, make_train_step
+    cfg, params, aux, _ = flagship_scene(2048, 32, 8, seed=3, device=device)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for lin in (params.timenet.pts_1, params.timenet.rot_1):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * 0.02)
+    state = init_state(params, aux, step=TRAIN_START - 1)
+    fn = make_train_step(cfg, LossConfig(), "s2", 256, 256, 2, 1, 2,
+                         capacity=CAPACITY, use_guidance=True)
+    batch = train_batch(params, (2, 1, 2), 256, device, seed=1)
+    loss, _ = fn.loss_fn(state.params, state.aux, batch, TRAIN_START,
+                         arap_times=np.linspace(0.05, 0.95, 8))
+    loss.backward()
+    return float(loss.detach()), {k: v.grad.detach().cpu() if v.grad is not None
+                         else torch.zeros_like(v).cpu()
+                         for k, v in optim.named_leaves(params).items()}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -92,6 +168,9 @@ def main() -> None:
         from dimo_tpu_torch.ops.rasterizer import projection, strips
         from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
         from dimo_tpu_torch.scenes import flagship_scene
+        from dimo_tpu_torch.train import optim
+        from dimo_tpu_torch.train.step import (LossConfig, group_lrs,
+                                               init_state, make_train_step)
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from a checkout")
 
@@ -164,9 +243,12 @@ def main() -> None:
     ns = lists.count.shape[0]
     entries = torch.zeros(ns, dtype=torch.int32, device=dev)
     k1 = {}
+    tfin = None
     for ch, tol in ((7, 1e-5), (3, 5e-4)):
         got = cs.composite_strips(table, lists.idx, lists.count, HEIGHT, WIDTH,
                                   ch, entries_out=entries)
+        if ch == 7:
+            tfin = got[7].clone()
         ref = cs.composite_strips_plain(table, lists.idx, lists.count, HEIGHT,
                                         WIDTH, ch)
         torch.cuda.synchronize()
@@ -190,13 +272,66 @@ def main() -> None:
               f"listed; overflow {int(lists.overflow)}")
     torch.cuda.synchronize()
 
+    # --- 2c. K3 against its plain version at the flagship lists --------
+    gout = torch.randn((8, HEIGHT, WIDTH),
+                       generator=torch.Generator().manual_seed(11)).to(dev)
+    got = cs.composite_strips_bwd(table, lists.idx, lists.count, tfin, gout)
+    ref = cs.composite_strips_bwd_plain(table, lists.idx, lists.count, tfin,
+                                        gout)
+    torch.cuda.synchronize()
+    lane_max = ref.abs().amax(dim=(0, 1))                  # (16,)
+    err = (got - ref).abs()
+    bad_slots = int((err > 1e-4 * lane_max).any(dim=-1).sum())
+    k3_err = float(err.max())
+    k3_rel = float((err / lane_max.clamp_min(1e-30)).max())
+    if not torch.isfinite(got).all() or bad_slots:
+        fail(f"K3 disagrees with its plain version: {bad_slots} list slots "
+             f"over 1e-4 of their lane's max |grad| (worst {k3_rel:.3g})")
+    k3_ms = cuda_ms(lambda: cs.composite_strips_bwd(
+        table, lists.idx, lists.count, tfin, gout), 20)
+    k3_plain = cuda_ms(lambda: cs.composite_strips_bwd_plain(
+        table, lists.idx, lists.count, tfin, gout), 1, warmup=1)
+    k3_entries = k1[7]["entries"]
+    k3_ops = k3_entries * 32 * 32 * K3_OPS
+    k3_bytes = (k3_entries * (64 + 4) + ns * 4 + 9 * HEIGHT * WIDTH * 4
+                + lists.idx.numel() * 16 * 4)
+    print(f"K3 composite bwd: {bad_slots} slots over tol; max |err| {k3_err:.3g}"
+          f" ({k3_rel:.3g} of the lane max); {k3_ms:.4f} ms (plain "
+          f"{k3_plain:.2f}); {k3_entries} entries")
+
+    # --- 2d. K4 against its plain version at the flagship shapes --------
+    m = table_t.shape[1]
+    g4 = torch.randn((11,) + tuple(nn_idx.shape),
+                     generator=torch.Generator().manual_seed(12)).to(dev)
+    got = sg.gather_small_cols_bwd(g4, nn_idx, m)
+    ref = sg.gather_small_cols_bwd_plain(g4, nn_idx, m)
+    mass = sg.gather_small_cols_bwd_plain(g4.abs(), nn_idx, m)
+    torch.cuda.synchronize()
+    k4_err = float((got - ref).abs().max())
+    if not torch.isfinite(got).all() or bool(((got - ref).abs()
+                                              > 1e-5 * mass + 1e-30).any()):
+        fail(f"K4 disagrees with its plain version: max |err| {k4_err} "
+             f"(tol 1e-5 of each entry's sum of |g|)")
+    g4_flat = g4.reshape(11, -1)
+    k4_ms = cuda_ms(lambda: sg.gather_small_cols_bwd(g4, nn_idx, m), 200)
+    k4_plain = cuda_ms(lambda: sg.gather_small_cols_bwd_plain(g4, nn_idx, m),
+                       5)
+    k4_lib = cuda_ms(lambda: torch.zeros((11, m), device=dev).index_add_(
+        1, flat, g4_flat), 200)
+    k4_bytes = s_sites * 4 + 11 * s_sites * 4 + 11 * m * 4
+    print(f"K4 gather_small_cols bwd (11, {s_sites}) -> (11, {m}): max |err| "
+          f"{k4_err:.3g}; {k4_ms:.4f} ms (plain {k4_plain:.4f}, index_add_ "
+          f"{k4_lib:.4f})")
+    torch.cuda.synchronize()
+
     # --- 3. small render on the card vs the same render on the CPU ------
     small = []
     for where in (dev, torch.device("cpu")):
         c2, p2, a2, cam2 = flagship_scene(2048, 32, 8, seed=3, device=where)
-        small.append([render(c2, p2, a2, cam2, 0.35, "s2", 1, 256, 256,
-                             torch.ones(3, device=where), capacity=1024,
-                             channels=ch) for ch in (7, 3)])
+        with torch.no_grad():
+            small.append([render(c2, p2, a2, cam2, 0.35, "s2", 1, 256, 256,
+                                 torch.ones(3, device=where), capacity=1024,
+                                 channels=ch) for ch in (7, 3)])
     for i, ch in enumerate((7, 3)):
         tol = 1e-4 if ch == 7 else 5e-4
         for key in ("image", "alpha", "depth", "normal"):
@@ -212,41 +347,64 @@ def main() -> None:
               f"{float((small[0][i]['image'].cpu() - small[1][i]['image']).abs().max()):.3g}")
     torch.cuda.synchronize()
 
-    # --- 4. the main path ------------------------------------------------
-    cs.launches = dict.fromkeys(cs.launches, 0)
-    sg.launches = 0
+    # --- 3b. small train step on the card vs the CPU ---------------------
     t0 = time.time()
-    for i in range(SEQ_FRAMES):
-        out = render(cfg, params, aux, cam, i / SEQ_FRAMES, "s2", 1, WIDTH,
-                     HEIGHT, bg, knn_cache=knn, capacity=CAPACITY, channels=7)
-        img, alpha = out["image"], out["alpha"]
-        if img.shape != (3, HEIGHT, WIDTH) or not torch.isfinite(img).all():
-            fail(f"frame {i}: image not finite or shape {tuple(img.shape)}")
-        a_max = float(alpha.max())
-        if not (a_max > 0.5 and float(alpha.mean()) > 0.01):
-            fail(f"frame {i}: trivial alpha (max {a_max})")
-        if out["overflow"].shape != () or out["overflow_max"].shape != ():
-            fail("overflow not reported")
-        for k in ("depth", "normal"):
-            if not torch.isfinite(out[k]).all():
-                fail(f"frame {i}: {k} not finite")
-    torch.cuda.synchronize()
-    seq_s = time.time() - t0
-    seq_overflow = int(out["overflow"])
-    img = render(cfg, params, aux, cam, 0.0, "s2", 1, WIDTH, HEIGHT, bg,
-                 knn_cache=knn, capacity=CAPACITY, channels=3)["image"]
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(FPS_ROUNDS):
+    loss_gpu, g_gpu = small_train_grads(dev)
+    loss_cpu, g_cpu = small_train_grads(torch.device("cpu"))
+    if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        fail(f"small train step: loss card {loss_gpu} vs CPU {loss_cpu}")
+    worst = ("", 0.0)
+    for k, ref in g_cpu.items():
+        norm = float(torch.linalg.norm(ref))
+        rel = (float(torch.linalg.norm(g_gpu[k] - ref)) / norm if norm
+               else float(g_gpu[k].abs().sum()))
+        if not rel <= 1e-3:
+            fail(f"small train step: gradient of {k} card vs CPU relative "
+                 f"L2 {rel}")
+        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    print(f"small train step 2x1x2 at 256^2: loss card {loss_gpu:.6f} CPU "
+          f"{loss_cpu:.6f}; worst gradient {worst[0]} relative L2 "
+          f"{worst[1]:.3g} ({len(g_cpu)} leaves; {time.time() - t0:.1f} s)")
+
+    # --- 4. the serving path (no graph recorded) --------------------------
+    with torch.no_grad():
+        cs.launches = dict.fromkeys(cs.launches, 0)
+        sg.launches = 0
+        sg.bwd_launches = 0
+        t0 = time.time()
+        for i in range(SEQ_FRAMES):
+            out = render(cfg, params, aux, cam, i / SEQ_FRAMES, "s2", 1, WIDTH,
+                         HEIGHT, bg, knn_cache=knn, capacity=CAPACITY, channels=7)
+            img, alpha = out["image"], out["alpha"]
+            if img.shape != (3, HEIGHT, WIDTH) or not torch.isfinite(img).all():
+                fail(f"frame {i}: image not finite or shape {tuple(img.shape)}")
+            a_max = float(alpha.max())
+            if not (a_max > 0.5 and float(alpha.mean()) > 0.01):
+                fail(f"frame {i}: trivial alpha (max {a_max})")
+            if out["overflow"].shape != () or out["overflow_max"].shape != ():
+                fail("overflow not reported")
+            for k in ("depth", "normal"):
+                if not torch.isfinite(out[k]).all():
+                    fail(f"frame {i}: {k} not finite")
+        torch.cuda.synchronize()
+        seq_s = time.time() - t0
+        seq_overflow = int(out["overflow"])
         img = render(cfg, params, aux, cam, 0.0, "s2", 1, WIDTH, HEIGHT, bg,
                      knn_cache=knn, capacity=CAPACITY, channels=3)["image"]
-    torch.cuda.synchronize()
-    fps = FPS_ROUNDS / (time.time() - t0)
-    if not torch.isfinite(img).all():
-        fail("ch3 image not finite")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(FPS_ROUNDS):
+            img = render(cfg, params, aux, cam, 0.0, "s2", 1, WIDTH, HEIGHT, bg,
+                         knn_cache=knn, capacity=CAPACITY, channels=3)["image"]
+        torch.cuda.synchronize()
+        fps = FPS_ROUNDS / (time.time() - t0)
+        if not torch.isfinite(img).all():
+            fail("ch3 image not finite")
     k1_launch = dict(cs.launches)
     k2_launch = sg.launches
     renders = SEQ_FRAMES + 1 + FPS_ROUNDS
+    if cs.launches["bwd"] or sg.bwd_launches:
+        fail("the serving path launched a backward kernel")
     if k1_launch["ch7"] != SEQ_FRAMES or k1_launch["ch3"] != 1 + FPS_ROUNDS:
         fail(f"K1 launches {k1_launch}, expected ch7={SEQ_FRAMES} "
              f"ch3={1 + FPS_ROUNDS}")
@@ -299,31 +457,120 @@ def main() -> None:
               + " ".join(f"{k}={v:.3f}" for k, v in mean.items())
               + f" total={sum(mean.values()):.3f}")
 
+    # --- 6. the training path at full width (bench_train.py's shape) ---
+    n_m, n_v, n_f = TRAIN_SHAPE
+    b = n_m * n_v * n_f
+    lcfg = LossConfig()
+    state = init_state(params, aux, step=TRAIN_START - 1)
+    batch = train_batch(params, TRAIN_SHAPE, WIDTH, dev, seed=0)
+    step_fn = make_train_step(cfg, lcfg, "s2", WIDTH, HEIGHT, n_m, n_v, n_f,
+                              capacity=CAPACITY, use_guidance=True)
+    before = {k: v.detach().clone()
+              for k, v in optim.named_leaves(params).items()}
+    marks = []
+
+    def mark(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1].append((name, ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.launches = dict.fromkeys(cs.launches, 0)
+    sg.launches = 0
+    sg.bwd_launches = 0
+    metrics = []
+    t_first = time.time()
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            first_s = time.time() - t_first
+            t0 = time.time()
+        marks.append([])
+        mark("start")
+        state, m = step_fn(state, batch, mark=mark)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / TRAIN_STEPS * 1e3
+    train_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
+                    "K3": cs.launches["bwd"], "K4": sg.bwd_launches}
+    for i, m in enumerate(metrics):
+        if not bool(torch.isfinite(m["loss"])) or int(m["nonfinite_grad"]):
+            fail(f"train step {i}: loss {float(m['loss'])}, nonfinite_grad "
+                 f"{int(m['nonfinite_grad'])}")
+    want = b * (1 + TRAIN_STEPS)
+    if any(v != want for v in train_launch.values()) or cs.launches["ch3"]:
+        fail(f"train launches {train_launch} (ch3 {cs.launches['ch3']}), "
+             f"expected {want} each")
+    lrs = group_lrs(lcfg, state.step, "s2")
+    after = optim.named_leaves(params)
+    stuck = sorted({optim.leaf_group(k) for k, v in before.items()
+                    if v.numel() and lrs[optim.leaf_group(k)] > 0
+                    and torch.equal(v, after[k].detach())})
+    if stuck:
+        fail(f"train: groups with a learning rate did not move: {stuck}")
+    split = {}
+    for step_marks in marks[1:]:
+        for (_, a), (name, e) in zip(step_marks, step_marks[1:]):
+            split[name] = split.get(name, 0.0) + a.elapsed_time(e) / TRAIN_STEPS
+    last = metrics[-1]
+    print(f"train path: {b} renders/step at {WIDTH}^2, {params.xyz.shape[0]} "
+          f"Gaussians, capacity {CAPACITY}, steps {TRAIN_START}.."
+          f"{state.step}: first step {first_s:.2f} s, steady {step_ms:.1f} "
+          f"ms/step (host clock, mean of {TRAIN_STEPS}); launches "
+          f"{train_launch}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("train split (CUDA events, ms/step): "
+          + " ".join(f"{k}={v:.1f}" for k, v in split.items())
+          + f" total={sum(split.values()):.1f}")
+    print("train metrics (last step): " + " ".join(
+        f"{k}={float(last[k]):.5g}" for k in
+        ("loss", "mse", "psnr", "ssim_loss", "mask_loss", "smooth",
+         "bilateral", "arap", "ga", "grad_norm", "overflow")))
+
     # --- kernels line, card, device --------------------------------------
+    def bound(ops: float, nbytes: float) -> dict:
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
     def k1_row(ch: int, key: str) -> dict:
         r = k1[ch]
-        t_ops = r["ops"] / FP32_PEAK * 1e3
-        t_bytes = r["bytes"] / HBM_BW * 1e3
         return {"name": f"composite_strips_fwd_{key}", "route": "cuda",
                 "source": "dimo_tpu_torch/csrc/composite_strips.cu",
                 "replaces": "dimo_tpu/ops/rasterizer/composite_strips.py:326",
                 "launches": k1_launch[key], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None, "entries": r["entries"]}
+                **bound(r["ops"], r["bytes"]), "library_ms": None,
+                "entries": r["entries"]}
 
-    k2_ops_ms = 0.0
-    k2_bytes_ms = k2_bytes / HBM_BW * 1e3
-    rows = [k1_row(7, "ch7"), k1_row(3, "ch3"),
+    # launches: on the training path (this slice's main path) for the
+    # kernels it runs, with the serving path's counts beside them
+    ch7 = k1_row(7, "ch7")
+    ch7.update(launches=train_launch["K1 ch7"], launches_render=k1_launch["ch7"])
+    rows = [ch7, k1_row(3, "ch3"),
             {"name": "gather_small_cols_fwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/smallgather.cu",
              "replaces": "dimo_tpu/ops/smallgather.py:200",
-             "launches": k2_launch, "max_abs_err": k2_err, "ms": k2_ms,
-             "plain_ms": k2_plain, "bound_ms": max(k2_ops_ms, k2_bytes_ms),
-             "bound_by": "bytes", "library_ms": k2_lib}]
+             "launches": train_launch["K2"], "launches_render": k2_launch,
+             "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+             **bound(0.0, k2_bytes), "library_ms": k2_lib},
+            {"name": "composite_strips_bwd", "route": "cuda",
+             "source": "dimo_tpu_torch/csrc/composite_strips.cu",
+             "replaces": "dimo_tpu/ops/rasterizer/composite_strips.py:394",
+             "launches": train_launch["K3"], "max_abs_err": k3_err,
+             "max_rel_lane_err": k3_rel, "ms": k3_ms, "plain_ms": k3_plain,
+             **bound(k3_ops, k3_bytes), "library_ms": None,
+             "entries": k3_entries},
+            {"name": "gather_small_cols_bwd", "route": "cuda",
+             "source": "dimo_tpu_torch/csrc/smallgather.cu",
+             "replaces": "dimo_tpu/ops/smallgather.py:212",
+             "launches": train_launch["K4"], "max_abs_err": k4_err,
+             "ms": k4_ms, "plain_ms": k4_plain, **bound(0.0, k4_bytes),
+             "library_ms": k4_lib}]
     print(json.dumps({"fps_ch3": fps,
-                      "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s}))
+                      "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
+                      "train_step_ms": step_ms, "train_split_ms": split}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

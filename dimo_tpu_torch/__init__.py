@@ -7,11 +7,17 @@ kernel (under `csrc/`) is held against its plain PyTorch version on the
 card by `chip_smoke.py`.
 
 Layers (bottom-up):
-  csrc/      hand-written CUDA C++ kernels for sm_90a (built by `build.py`)
-  ops/       plain-tensor math + kernel wrappers (rasterizer, LBS gather)
+  csrc/      hand-written CUDA C++ kernels for sm_90a (built by `build.py`):
+             the strip compositor and its backward (K1, K3), the LBS
+             column gather and its scatter-add backward (K2, K4)
+  ops/       plain-tensor math + kernel wrappers with autograd (rasterizer,
+             LBS gather), image losses, ARAP, neighbours, and the JAX
+             gradient conventions at kinks (`grad_conventions.py`)
   models/    Gaussians, TimeNet, KNN-LBS deformation, the renderer
-  io/        weight conversion from the JAX package's numpy leaves
-  utils/     cameras (numpy), small helpers
+  train/     per-group Adam and the stage-2 train step
+  io/        weight and optimizer-state conversion from the JAX package's
+             numpy leaves
+  utils/     cameras (numpy), LR schedules, small helpers
 
 Entry points take `device=` and default to "cuda"; the CPU runs only
 where a caller asks for it (the tests do).

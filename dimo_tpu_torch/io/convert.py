@@ -12,7 +12,10 @@ dict of numpy arrays under the JAX names, e.g.
 
 and `params_from_numpy` returns the port's objects. TimeNet weights are
 transposed from the JAX (fan_in, fan_out) layout into nn.Linear's
-(out, in). No JAX object crosses: the port never imports JAX.
+(out, in). `train_state_from_numpy` also carries a JAX TrainState's Adam
+moments (laid out as the parameters) and step counts across, so both
+packages can continue from the same state. No JAX object crosses: the
+port never imports JAX.
 """
 from __future__ import annotations
 
@@ -21,10 +24,10 @@ import torch
 
 from dimo_tpu_torch.models import gaussians as G
 from dimo_tpu_torch.models.timenet import DEPTH, TimeNet, input_dim
+from dimo_tpu_torch.train import optim
+from dimo_tpu_torch.train.step import TrainState, init_state
 from dimo_tpu_torch.utils.general import resolve_device
 
-PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
-                "opacity", "c_xyz", "c_radius", "r")
 AUX_OPTIONAL = ("max_radii2d", "xyz_grad_accum", "denom")
 
 
@@ -58,7 +61,7 @@ def timenet_from_numpy(leaves: dict, device="cuda") -> TimeNet:
 def params_from_numpy(d: dict, device="cuda"):
     """(GaussianParams, GaussianAux) from the JAX package's numpy leaves."""
     dev = resolve_device(device)
-    fields = {k: _t(d[k], dev) for k in PARAM_FIELDS}
+    fields = {k: _t(d[k], dev) for k in G.PARAM_FIELDS}
     params = G.GaussianParams(
         **fields,
         latent={k: _t(v, dev) for k, v in d["latent"].items()},
@@ -71,3 +74,41 @@ def params_from_numpy(d: dict, device="cuda"):
     aux = G.GaussianAux(active=_t(d["active"], dev, torch.bool),
                         c_active=_t(d["c_active"], dev, torch.bool), **extra)
     return params, aux
+
+
+def port_leaves_from_numpy(d: dict, device="cuda") -> dict:
+    """{port leaf name (`optim.named_leaves`): tensor} of numpy leaves in
+    the JAX layout (the parameter fields, "latent": {...}, "timenet":
+    {"trunk_0_w": ...}); TimeNet weights are transposed to (out, in)."""
+    dev = resolve_device(device)
+    out = {k: _t(d[k], dev) for k in G.PARAM_FIELDS}
+    out.update({f"latent.{k}": _t(v, dev) for k, v in d["latent"].items()})
+    if d.get("timenet"):
+        net = timenet_from_numpy(d["timenet"], dev)
+        out.update({f"timenet.{k}": v.detach()
+                    for k, v in net.named_parameters()})
+    return out
+
+
+def train_state_from_numpy(d: dict, opt: dict, step: int, device="cuda",
+                           seed: int = 0) -> TrainState:
+    """A port TrainState from a JAX TrainState as numpy: `d` the parameter
+    and aux leaves (as for `params_from_numpy`), `opt` = {"mu": ...,
+    "nu": ..., "step": int} with the Adam moments laid out as the
+    parameters, `step` the stage-local step count. The state's generator
+    is seeded from `seed` (JAX keys do not carry over)."""
+    params, aux = params_from_numpy(d, device)
+    state = init_state(params, aux, step=int(step), seed=seed)
+    leaves = optim.named_leaves(params)
+    mu = port_leaves_from_numpy(opt["mu"], device)
+    nu = port_leaves_from_numpy(opt["nu"], device)
+    for k, v in leaves.items():
+        if mu[k].shape != v.shape or nu[k].shape != v.shape:
+            raise ValueError(f"moment {k}: shapes {tuple(mu[k].shape)}/"
+                             f"{tuple(nu[k].shape)} do not fit "
+                             f"{tuple(v.shape)}")
+    state.opt = optim.AdamState(
+        mu={k: mu[k] for k in leaves}, nu={k: nu[k] for k in leaves},
+        step=torch.tensor(int(opt["step"]), dtype=torch.int32,
+                          device=params.xyz.device))
+    return state

@@ -12,8 +12,9 @@ Stage semantics:
   * s2: per-Gaussian `scaling`; control points `c_xyz` with per-point
     log-radius `c_radius`; deformation via KNN linear-blend skinning.
 
-The densify / prune mutations (`dimo_tpu/models/gaussians.py:274-467`)
-come with the training slice.
+The train step (`train/step.py`) trains these leaves in place. The
+densify / prune mutations (`dimo_tpu/models/gaussians.py:274-467`, with
+their Adam-moment surgery) come with the trainer.
 """
 from __future__ import annotations
 
@@ -44,6 +45,12 @@ class GaussianParams:
 
     def replace(self, **kw) -> "GaussianParams":
         return dataclasses.replace(self, **kw)
+
+
+# the tensor fields of GaussianParams (the learnable leaves besides the
+# latent dict and TimeNet), under the same names in both packages
+PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+                "opacity", "c_xyz", "c_radius", "r")
 
 
 @dataclasses.dataclass

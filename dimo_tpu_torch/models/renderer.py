@@ -5,9 +5,10 @@ returned dict carries the reference's render keys (image, depth, normal,
 alpha, radii, visibility_filter, pts_t, cpts_t) plus `overflow` and
 `overflow_max` for the strip-capacity diagnostics.
 
-This slice serves renders: `render` runs under `torch.no_grad()`, and its
-kernels (K1 compositor, K2 LBS gather) are forward only. Gradients come
-with the training slice.
+`render` is differentiable (the train step backpropagates through it:
+K3 and K4 are the backward kernels of the compositor and the LBS
+gather); serving callers run it under `torch.no_grad()`, so no graph is
+recorded. `find_knn` never carries a gradient, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from dimo_tpu_torch.models import deform as deform_mod
 from dimo_tpu_torch.models import gaussians as G
+from dimo_tpu_torch.ops import grad_conventions as gc
 from dimo_tpu_torch.ops import neighbors
 from dimo_tpu_torch.ops import quat as quat_ops
 from dimo_tpu_torch.ops.rasterizer import rasterize
@@ -40,7 +42,6 @@ def find_knn(params: G.GaussianParams, aux: G.GaussianAux, k: int = 4):
             torch.stack(ids, 0))
 
 
-@torch.no_grad()
 def render(
     cfg: G.ModelConfig,
     params: G.GaussianParams,
@@ -96,7 +97,9 @@ def render(
         capacity=capacity, channels=channels)
 
     return {
-        "image": torch.clamp(out.image, 0.0, 1.0),
+        # jnp.clip's slope at 0 and 1 is 0.5: white-background pixels sit
+        # at exactly 1.0
+        "image": gc.clip(out.image, 0.0, 1.0),
         "depth": out.depth,
         "normal": out.normal,
         "alpha": out.alpha,

@@ -1,13 +1,16 @@
 """Neighbor queries on a dense distance matrix (torch).
 
 Counterpart of the parts of `dimo_tpu/ops/neighbors.py` that the render
-path and the model init use: `pairwise_sq_dists` (read by
-`models/renderer.find_knn`) and `mean_sq_dist_3nn` (read by
-`models/gaussians.init_model`).
+path, the model init and the train step use: `pairwise_sq_dists` (read by
+`models/renderer.find_knn` and `ops/arap.py`), `mean_sq_dist_3nn` (read
+by `models/gaussians.init_model`) and `chamfer_forward` (the stage-2
+guidance loss).
 """
 from __future__ import annotations
 
 import torch
+
+from dimo_tpu_torch.ops import grad_conventions as gc
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -17,7 +20,7 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x2 = torch.sum(x * x, dim=-1, keepdim=True)           # (N, 1)
     y2 = torch.sum(y * y, dim=-1, keepdim=True).T          # (1, M)
     xy = x @ y.T                                           # (N, M)
-    return torch.clamp_min(x2 - 2.0 * xy + y2, 0.0)
+    return gc.maximum(x2 - 2.0 * xy + y2, 0.0)
 
 
 def mean_sq_dist_3nn(points: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
@@ -32,3 +35,14 @@ def mean_sq_dist_3nn(points: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
         d2[rows, base + rows] = float("inf")              # drop self
         out[base:base + chunk] = torch.topk(d2, 3, dim=1, largest=False).values.mean(-1)
     return out
+
+
+def chamfer_forward(x: torch.Tensor, y: torch.Tensor,
+                    x_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward chamfer: sum over x of the squared distance to the nearest
+    y (chamferdist's reduction = sum). Tied nearest points share the
+    gradient, as `jnp.min` splits it."""
+    nearest = gc.amin(pairwise_sq_dists(x, y), dim=-1)
+    if x_valid is not None:
+        nearest = torch.where(x_valid, nearest, torch.zeros_like(nearest))
+    return torch.sum(nearest)

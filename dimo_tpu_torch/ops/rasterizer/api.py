@@ -1,10 +1,13 @@
-"""Gaussian-splat rendering: the public rasterizer API (forward).
+"""Gaussian-splat rendering: the public rasterizer API.
 
 Counterpart of `dimo_tpu/ops/rasterizer/api.py::rasterize`: one pass
-composites RGB + depth + normal + alpha (channels=7), or RGB only
-(channels=3) / RGB + depth (channels=4) through the early-exit variant.
-Projection, binning and the coefficient table are plain tensor ops; the
-compositing is kernel K1 (`composite_strips.py`) on the card.
+composites RGB + depth + normal + alpha (channels=7, differentiable), or
+RGB only (channels=3) / RGB + depth (channels=4) through the forward-only
+early-exit variant. Projection, binning and the coefficient table are
+plain tensor ops under autograd; the compositing is kernel K1 forward and
+K3 backward (`composite_strips.py`) on the card. The strip lists are
+built from detached means and depths, as the reference builds them, so
+the gradient reaches the Gaussians only through the coefficient table.
 """
 from __future__ import annotations
 

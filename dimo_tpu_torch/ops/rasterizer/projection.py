@@ -1,8 +1,11 @@
-"""Per-Gaussian screen-space preprocessing (plain tensor ops).
+"""Per-Gaussian screen-space preprocessing (plain tensor ops, autograd).
 
 Counterpart of `dimo_tpu/ops/rasterizer/projection.py`: frustum cull, EWA
 projection of 3D covariances to 2D, conic and radius, SH->RGB and
 camera-facing normals, in the same flat (N,) component form and op order.
+The clips on the gradient path use the reference's tie conventions
+(`ops/grad_conventions.py`); radius, cull radius and the frustum mask
+carry no gradient, as in the reference.
 
 Conventions (utils/cameras.py):
   * matrices are stored transposed; points transform as row vectors,
@@ -16,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dimo_tpu_torch.ops import grad_conventions as gc
 from dimo_tpu_torch.ops import quat as quat_ops
 from dimo_tpu_torch.ops import sh as sh_ops
 
@@ -102,8 +106,8 @@ def project(
     tz_safe = torch.where(in_front, tz, 1.0)
     limx = float(f32(1.3) * tan_fovx)
     limy = float(f32(1.3) * tan_fovy)
-    txz = torch.clamp(p_view[:, 0] / tz_safe, -limx, limx)
-    tyz = torch.clamp(p_view[:, 1] / tz_safe, -limy, limy)
+    txz = gc.clip(p_view[:, 0] / tz_safe, -limx, limx)
+    tyz = gc.clip(p_view[:, 1] / tz_safe, -limy, limy)
     tx = txz * tz_safe
     ty = tyz * tz_safe
 
@@ -170,7 +174,7 @@ def project(
         dirs = means3d - campos[None, :]
         dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-8)
         col = sh_ops.eval_sh(sh_degree, sh_coeffs.transpose(-1, -2), dirs)
-        color = torch.clamp_min(col + 0.5, 0.0)
+        color = gc.maximum(col + 0.5, 0.0)
 
     normal = camera_facing_normal(scales, quats, means3d, campos)
 

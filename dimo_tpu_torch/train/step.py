@@ -1,0 +1,353 @@
+"""One training step: renders, loss assembly, backward, per-group Adam.
+
+Counterpart of `dimo_tpu/train/step.py` at stage s2. The reference jits
+the whole step and maps the renders sequentially (`lax.map`); here the
+renders run in a Python loop in the same motion-major order, autograd
+records them, and one `backward` runs the compositor and LBS-gather
+backward kernels (K3, K4) for every render.
+
+Loss (the reference's `loss_fn`, same weights and gates):
+  * per-image weighted MSE, per-motion SSIM and mask MSE, KL when `vae`;
+  * edge-aware depth and bilateral normal smoothness, gated by
+    step > depth/normal_reg_start_iter;
+  * ARAP on the control points over `arap_t_samples` TimeNet times,
+    gated by step < arap_end_iter_s2;
+  * chamfer guidance of the deformed control points to the batch's
+    stage-1 trajectories (`use_guidance`).
+Then the non-finite guard (every gradient finite and sup|g| < 1e17,
+taken before the optional global-norm clip, as in the reference), and
+Adam on `where(grads_ok, new, old)`; a skipped step leaves parameters,
+moments and the Adam step count as they were.
+
+Batch (B = n_motions * n_views * n_frames, motion-major, then view, then
+frame): "camera" a list of B `utils.cameras.Camera`; "times" (B,) and
+"latent_idx" (B,) on the host; "mse_w" (B,); "gt_image" (B, H, W, 3) and
+"gt_mask" (B, H, W) uint8 at the render size; "guidance" (B, M, 3).
+
+Not yet here (they wait for the trainer slice): stage s1 (its
+`mean2d_tap` gradient and densification statistics), resizing the GT to
+the render size, LPIPS, test-time latent fine-tuning (`trainable_groups`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from dimo_tpu_torch.models import gaussians as G
+from dimo_tpu_torch.models.renderer import find_knn, render
+from dimo_tpu_torch.ops import arap as arap_mod
+from dimo_tpu_torch.ops import grad_conventions as gc
+from dimo_tpu_torch.ops import image_losses as L
+from dimo_tpu_torch.ops import neighbors
+from dimo_tpu_torch.train import optim
+from dimo_tpu_torch.utils import schedules
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: G.GaussianParams
+    aux: G.GaussianAux
+    opt: optim.AdamState
+    step: int                  # stage-local step, 1-based after an update
+    rng: torch.Generator       # ARAP times (and VAE noise) on the host
+
+
+def init_state(params: G.GaussianParams, aux: G.GaussianAux, step: int = 0,
+               seed: int = 0) -> TrainState:
+    """A TrainState with zero moments; marks every leaf as trainable."""
+    leaves = optim.named_leaves(params)
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+    return TrainState(params=params, aux=aux, opt=optim.init(leaves),
+                      step=step, rng=torch.Generator().manual_seed(seed))
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss and schedule hyper-parameters (the reference's, same defaults)."""
+    lambda_mse: float = 5000.0
+    lambda_lpips: float = 1000.0
+    lambda_ssim: float = 500.0
+    lambda_mask: float = 500.0
+    lambda_smooth: float = 100.0
+    lambda_bilateral: float = 0.05
+    lambda_arap: float = 10.0
+    lambda_kl: float = 0.05
+    lambda_ga1: float = 10.0
+    lambda_ga2: float = 10000.0
+    grad_clip_norm: float = 0.0
+    add_depth: bool = True
+    add_normal: bool = True
+    add_ga: bool = True
+    ga_chamfer: bool = True
+    use_arap: bool = True
+    vae: bool = False
+    depth_reg_start_iter: int = 200
+    normal_reg_start_iter: int = 200
+    arap_start_iter_s1: int = 1000
+    arap_end_iter_s2: int = 2000
+    fps_iter: int = 1000
+    density_start_iter: int = 100
+    density_end_iter: int = 1000
+    position_lr_init: float = 0.01
+    position_lr_final: float = 0.0002
+    position_lr_max_steps: int = 500
+    c_position_lr_init: float = 0.000002
+    c_position_lr_final: float = 0.000002
+    latent_code_lr_init: float = 0.005
+    latent_code_lr_final: float = 0.0002
+    deform_lr_init: float = 0.0002
+    deform_lr_final: float = 0.000002
+    feature_lr: float = 0.01
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.005
+    c_radius_lr: float = 0.005
+    r_lr: float = 0.01
+    arap_t_samples: int = 8
+    arap_radius: float = 0.1
+
+
+def group_lrs(lcfg: LossConfig, step: int, stage: str) -> dict:
+    """{group: lr as a float32 value} at `step`: the reference's
+    update_learning_rate with its stage overrides."""
+    n = lcfg.position_lr_max_steps
+    xyz_sched = schedules.expon_lr(lcfg.position_lr_init,
+                                   lcfg.position_lr_final, max_steps=n)
+    c_sched = schedules.expon_lr(lcfg.c_position_lr_init,
+                                 lcfg.c_position_lr_final, max_steps=n)
+    lat_sched = schedules.expon_lr(lcfg.latent_code_lr_init,
+                                   lcfg.latent_code_lr_final, max_steps=n)
+    def_sched = schedules.expon_lr(lcfg.deform_lr_init, lcfg.deform_lr_final,
+                                   max_steps=n)
+    f = lambda x: float(torch.as_tensor(x, dtype=torch.float32))  # noqa: E731
+    if stage == "s1":
+        lrs = {
+            "xyz": xyz_sched(step),
+            "f_dc": lcfg.feature_lr, "f_rest": lcfg.feature_lr / 20.0,
+            "opacity": lcfg.opacity_lr, "scaling": lcfg.scaling_lr,
+            "rotation": lcfg.rotation_lr,
+            "latent_code": lcfg.latent_code_lr_init,
+            "latent_code_mu": lcfg.latent_code_lr_init,
+            "latent_code_log_var": lcfg.latent_code_lr_init,
+            "deform": lcfg.deform_lr_init, "deform_rot": lcfg.deform_lr_init,
+            "c_xyz": 0.0, "c_radius": 0.0, "r": lcfg.r_lr,
+        }
+    else:
+        lrs = {
+            "xyz": 0.0002 if step < 1000 else xyz_sched(step),
+            "f_dc": lcfg.feature_lr, "f_rest": lcfg.feature_lr / 20.0,
+            "opacity": lcfg.opacity_lr, "scaling": lcfg.scaling_lr,
+            "rotation": lcfg.rotation_lr,
+            "latent_code": lat_sched(step),
+            "latent_code_mu": lat_sched(step),
+            "latent_code_log_var": lat_sched(step),
+            "deform": def_sched(step), "deform_rot": def_sched(step),
+            "c_xyz": c_sched(step), "c_radius": lcfg.c_radius_lr, "r": 0.0,
+        }
+    return {k: f(v) for k, v in lrs.items()}
+
+
+def make_train_step(
+    cfg: G.ModelConfig,
+    lcfg: LossConfig,
+    stage: str,
+    width: int,
+    height: int,
+    n_motions: int,
+    n_views: int,
+    n_frames: int,
+    capacity: int = 512,
+    use_guidance: bool = False,
+) -> Callable:
+    """The step for a fixed (stage, resolution, batch shape):
+    `train_step(state, batch, arap_times=None, mark=None)` updates `state`
+    in place and returns (state, metrics). `arap_times` (arap_t_samples,)
+    replaces the times drawn from `state.rng`; `mark(name)`, if given, is
+    called after the renders, the losses, the backward and the update
+    (e.g. to record CUDA events). `train_step.loss_fn` is the loss alone."""
+    if stage != "s2":
+        raise NotImplementedError(
+            "stage s1 (mean2d_tap, densification statistics) comes with the "
+            "trainer")
+    B = n_motions * n_views * n_frames
+    per = n_views * n_frames
+
+    def per_motion(x):
+        return x.reshape(n_motions, per, *x.shape[1:])
+
+    def loss_fn(params, aux, batch, step: int, arap_times=None,
+                generator: torch.Generator | None = None, mark=None):
+        dev = params.xyz.device
+        bg = torch.ones(3, device=dev)
+        knn_cache = find_knn(params, aux)
+        times = torch.as_tensor(batch["times"]).tolist()
+        lidx = [int(i) for i in torch.as_tensor(batch["latent_idx"]).tolist()]
+        vae_rng = generator if lcfg.vae else None
+        outs = [render(cfg, params, aux, batch["camera"][b], times[b], stage,
+                       lidx[b], width, height, bg, rng=vae_rng,
+                       knn_cache=knn_cache, capacity=capacity)
+                for b in range(B)]
+        if mark is not None:
+            mark("renders")
+        stack = lambda k: torch.stack([o[k] for o in outs])  # noqa: E731
+        imgs = stack("image")                                 # (B, 3, h, w)
+        masks = stack("alpha")
+
+        gt_img = torch.as_tensor(batch["gt_image"], device=dev)
+        gt_msk = torch.as_tensor(batch["gt_mask"], device=dev)
+        if tuple(gt_img.shape[1:3]) != (height, width) \
+                or tuple(gt_msk.shape[1:3]) != (height, width):
+            raise ValueError(
+                f"GT must arrive at the render size {(height, width)}, got "
+                f"{tuple(gt_img.shape)} / {tuple(gt_msk.shape)}")
+        gt = (gt_img.to(torch.float32) / 255.0).permute(0, 3, 1, 2)
+        gt_m = (gt_msk.to(torch.float32) / 255.0)[:, None]
+
+        per_img_mse = torch.mean((imgs - gt) ** 2, dim=(1, 2, 3))   # (B,)
+        mse_w = torch.as_tensor(batch["mse_w"], dtype=torch.float32,
+                                device=dev)
+        loss = lcfg.lambda_mse * torch.sum(mse_w * per_img_mse)
+
+        nhwc = lambda x: x.permute(0, 2, 3, 1)               # noqa: E731
+        imgs_m, gt_mm = per_motion(imgs), per_motion(gt)
+        ssim_losses = torch.stack([1.0 - L.ssim(nhwc(a), nhwc(b))
+                                   for a, b in zip(imgs_m, gt_mm)])
+        loss = loss + lcfg.lambda_ssim * torch.sum(ssim_losses)
+        lp = torch.zeros((n_motions,), device=dev)
+        mask_losses = torch.stack([torch.mean((a - b) ** 2) for a, b in
+                                   zip(per_motion(masks), per_motion(gt_m))])
+        loss = loss + lcfg.lambda_mask * torch.sum(mask_losses)
+
+        m_idx = lidx[::per]
+        kl = torch.zeros((), device=dev)
+        if lcfg.vae:
+            mu = params.latent["mu"][m_idx]
+            log_var = params.latent["log_var"][m_idx]
+            kl = torch.sum(-0.5 * torch.sum(
+                1 + log_var - mu ** 2 - torch.exp(log_var), dim=-1))
+            loss = loss + lcfg.lambda_kl * kl
+
+        i_nhwc = per_motion(nhwc(imgs))
+        smooth_l = torch.zeros((), device=dev)
+        if lcfg.add_depth:
+            d_nhwc = per_motion(nhwc(stack("depth")))
+            smooth_l = sum(L.edge_aware_smoothness(d, i)
+                           for d, i in zip(d_nhwc, i_nhwc))
+            gate = float(step > lcfg.depth_reg_start_iter)
+            loss = loss + gate * lcfg.lambda_smooth * smooth_l
+        bilat_l = torch.zeros((), device=dev)
+        if lcfg.add_normal:
+            n_nhwc = per_motion(nhwc(stack("normal")))
+            bilat_l = sum(L.bilateral_normal_smoothness(nn, i)
+                          for nn, i in zip(n_nhwc, i_nhwc))
+            gate = float(step > lcfg.normal_reg_start_iter)
+            loss = loss + gate * lcfg.lambda_bilateral * bilat_l
+
+        arap_l = torch.zeros((), device=dev)
+        if lcfg.use_arap:
+            gate = float(step < lcfg.arap_end_iter_s2)
+            base = params.c_xyz
+            if arap_times is None:
+                arap_times = torch.rand((lcfg.arap_t_samples,),
+                                        generator=generator)
+            q = torch.as_tensor(arap_times, dtype=torch.float32,
+                                device=dev)[:, None, None]
+            pts = base[None].expand(q.shape[0], *base.shape)
+            for li in m_idx:
+                lat = G.sample_latent(params, li, None)
+                d_xyz_t, _ = params.timenet(pts, q, lat)       # (T, M, 3)
+                arap_l = arap_l + arap_mod.arap_loss(
+                    base, d_xyz_t, valid=aux.c_active,
+                    radius=lcfg.arap_radius, generator=generator)
+            loss = loss + gate * lcfg.lambda_arap * arap_l
+
+        ga_l = torch.zeros((), device=dev)
+        if use_guidance and lcfg.add_ga:
+            c_valid = aux.c_active
+            guid = torch.as_tensor(batch["guidance"], device=dev).detach()
+            for o, g in zip(outs, guid):
+                c = o["cpts_t"]
+                if lcfg.ga_chamfer:
+                    ga_l = ga_l + neighbors.chamfer_forward(c, g,
+                                                            x_valid=c_valid)
+                else:
+                    diff = torch.where(c_valid[:, None], gc.abs(c - g),
+                                       torch.zeros_like(c))
+                    ga_l = ga_l + torch.sum(diff) / torch.clamp_min(
+                        torch.sum(c_valid) * 3.0, 1.0)
+            lam = lcfg.lambda_ga1 if lcfg.ga_chamfer else lcfg.lambda_ga2
+            loss = loss + lam * ga_l
+
+        mse = torch.mean(per_img_mse)
+        metrics = {
+            "loss": loss, "mse": mse, "psnr": L.psnr(mse),
+            "ssim_loss": torch.mean(ssim_losses), "lpips": torch.mean(lp),
+            "mask_loss": torch.mean(mask_losses), "kl": kl, "arap": arap_l,
+            "ga": ga_l, "smooth": smooth_l, "bilateral": bilat_l,
+            "overflow": torch.sum(stack("overflow")),
+            "overflow_max": torch.max(stack("overflow_max")),
+        }
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        vis_aux = {"debug_render": imgs[0].detach(), "debug_gt": gt[0]}
+        if mark is not None:
+            mark("losses")
+        return loss, (metrics, vis_aux)
+
+    def train_step(state: TrainState, batch: dict, arap_times=None,
+                   mark=None):
+        step = state.step + 1
+        leaves = optim.named_leaves(state.params)
+        for leaf in leaves.values():
+            leaf.grad = None
+        loss, (metrics, vis_aux) = loss_fn(state.params, state.aux, batch,
+                                           step, arap_times, state.rng, mark)
+        loss.backward()
+        if mark is not None:
+            mark("backward")
+        with torch.no_grad():
+            grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                     for k, v in leaves.items()}
+            # one inf/nan leaf, or |g| so large that g*g overflows the
+            # second moment, would poison Adam for good: such a step is
+            # skipped (the reference's guard, taken before clipping)
+            gl = [g for g in grads.values() if g.numel()]
+            sup_g = torch.max(torch.stack([g.abs().amax() for g in gl]))
+            finite = torch.stack([torch.isfinite(g).all() for g in gl]).all()
+            grads_ok = finite & (sup_g < 1e17)
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gl))
+            if lcfg.grad_clip_norm > 0:
+                scale = torch.clamp_max(lcfg.grad_clip_norm / (gnorm + 1e-12),
+                                        1.0)
+                grads = {k: g * scale for k, g in grads.items()}
+            zero = torch.zeros((), device=sup_g.device)
+            grads = {k: torch.where(grads_ok, g, zero) for k, g in grads.items()}
+            lr_g = group_lrs(lcfg, step, stage)
+            lrs = {k: lr_g[optim.leaf_group(k)] for k in leaves}
+            new, new_opt = optim.update(leaves, grads, state.opt, lrs)
+            for k, p in leaves.items():
+                p.copy_(torch.where(grads_ok, new[k], p))
+            old = state.opt
+            state.opt = optim.AdamState(
+                mu={k: torch.where(grads_ok, new_opt.mu[k], old.mu[k])
+                    for k in leaves},
+                nu={k: torch.where(grads_ok, new_opt.nu[k], old.nu[k])
+                    for k in leaves},
+                step=torch.where(grads_ok, new_opt.step, old.step))
+            for leaf in leaves.values():
+                leaf.grad = None
+        state.step = step
+        if mark is not None:
+            mark("adam")
+        metrics = dict(metrics)
+        metrics["nonfinite_grad"] = (~grads_ok).to(torch.int32)
+        metrics["grad_norm"] = gnorm
+        metrics["grad_sup"] = sup_g
+        metrics["debug_render"] = vis_aux["debug_render"]
+        metrics["debug_gt"] = vis_aux["debug_gt"]
+        return state, metrics
+
+    train_step.loss_fn = loss_fn
+    return train_step

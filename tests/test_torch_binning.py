@@ -22,6 +22,7 @@ from dimo_tpu.utils import cameras as jcam
 from dimo_tpu_torch.ops.rasterizer import projection as tproj
 from dimo_tpu_torch.ops.rasterizer import strips as tstrips
 from dimo_tpu_torch.ops.rasterizer import tiles as ttiles
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _t(a):

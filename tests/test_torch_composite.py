@@ -29,7 +29,7 @@ from dimo_tpu_torch.ops.rasterizer import rasterize as t_rasterize
 from dimo_tpu_torch.ops.rasterizer import composite_strips as tcs
 from dimo_tpu_torch.utils import cameras as tcam
 
-from torch_parity import assert_close_except_cut_flips
+from torch_parity import assert_close_except_cut_flips, one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -19,6 +19,7 @@ from dimo_tpu_torch.models import deform as tdef
 from dimo_tpu_torch.models import gaussians as TG
 from dimo_tpu_torch.models import renderer as tren
 from dimo_tpu_torch.ops import smallgather as tsg
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -29,6 +29,7 @@ from dimo_tpu_torch.ops import quat as tq
 from dimo_tpu_torch.ops import sh as tsh
 from dimo_tpu_torch.utils import cameras as tcam
 from dimo_tpu_torch.utils import general as tgen
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

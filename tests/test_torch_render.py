@@ -24,7 +24,7 @@ from dimo_tpu_torch.scenes import flagship_numpy
 from dimo_tpu_torch.utils import cameras as tcam
 
 from test_torch_math import jax_to_numpy
-from torch_parity import assert_close_except_cut_flips
+from torch_parity import assert_close_except_cut_flips, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -69,8 +69,10 @@ def test_render_s2_matches_jax(scenes, monkeypatch, width, height, channels, t):
     (cfg_j, jp, ja), (cfg_t, tp, ta), cam = scenes
     j = jren.render(cfg_j, jp, ja, cam, t, "s2", 1, width, height,
                     jnp.ones((3,)), capacity=1024, channels=channels)
-    out = tren.render(cfg_t, tp, ta, tcam.Camera(*cam), t, "s2", 1, width,
-                      height, torch.ones(3), capacity=1024, channels=channels)
+    with torch.no_grad():      # the serving path records no graph
+        out = tren.render(cfg_t, tp, ta, tcam.Camera(*cam), t, "s2", 1, width,
+                          height, torch.ones(3), capacity=1024,
+                          channels=channels)
     tol = 1e-4 if channels == 7 else 5e-4
     for f in ("image", "alpha", "depth", "normal"):
         # max_px_frac: besides alpha-cut flips, the flagship's sub-pixel

@@ -1,4 +1,5 @@
-"""Shared comparison for the PyTorch port's image parity tests.
+"""Shared helpers of the PyTorch port's parity tests: the image
+comparison below, and `one_torch_thread`.
 
 A composited pixel can differ from the reference by a step where one
 list entry's alpha lies within float32 rounding of the 1/255 cut: the
@@ -10,6 +11,8 @@ to the stated tolerance. Callers whose scenes also hit the shifted
 quadratic's float32 cancellation widen `max_px_frac` and say why.
 """
 import numpy as np
+import pytest
+import torch
 
 ALPHA_EPS = 1.0 / 255.0
 
@@ -28,3 +31,17 @@ def assert_close_except_cut_flips(got, ref, tol, what="", max_px_frac=2e-4):
     scale = np.maximum(np.abs(ref).reshape(ref.shape[0], -1).max(axis=1), 1.0)
     step = 2.0 * ALPHA_EPS * scale[:, None, None] + tol
     assert (err <= step).all(), (what, float(err.max()))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's PyTorch ops on one intra-op thread. The plain
+    versions are long chains of small ops; with several test workers on
+    the machine, each op's default thread pool oversubscribes the cores
+    and spins (measured: a 3 s test took 160 s beside five busy
+    processes, and 24 s on one thread). Import it into a test module to
+    use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

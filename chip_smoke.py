@@ -4,26 +4,33 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels (K1 strip compositor and K3 its
-   backward, K2 LBS column gather and K4 its backward) from
-   `dimo_tpu_torch/csrc/` with nvcc, at first use.
+   backward, K2 LBS column gather and K4 its backward, K7 the binning's
+   window readout) from `dimo_tpu_torch/csrc/` with nvcc, all at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship render gives it: K2 bit-exact; K1 7-channel at
    atol 1e-5; K1 3-channel early exit against the plain exhaustive
    composite at 5e-4 (the T_EXIT tail bound); K3 per list slot at 1e-4 of
    each lane's max |grad| (only the order of the per-entry sums differs;
    an alpha replayed differently from K1 would show as an O(1) slot);
-   K4 at 1e-5 of each entry's sum of |g| (atomics add in any order).
+   K4 at 1e-5 of each entry's sum of |g| (atomics add in any order);
+   K7 bit-exact, at the flagship's sorted pairs and window starts
+   (capacity 1024) and at capacity 64 with windows that overrun the
+   array end, and the flagship's strip lists by both readout routes
+   (`tiles.WINDMA` off and on) equal in all four outputs.
 3. Checks a small render on the card against the same render on the CPU
    (plain versions): 1e-4, except the rare pixel where one entry sits on
    the 1/255 alpha cut. Then a small train step (2,048 Gaussians, 32
    control points, latent 8, 2 x 1 x 2 renders at 256^2): loss (rtol
    1e-4) and every parameter's gradient (relative L2 1e-3), card vs CPU.
+   And a small stage-1 step (512 Gaussians in a capacity of 1,024, 2 x 1
+   x 2 renders at 256^2 from a 512^2 ground truth, so the resize runs):
+   loss, gradients, the `mean2d_tap` gradient, `denom`, `max_radii2d`.
 4. Drives the serving path through the port's entry points at full
    width, under torch.no_grad(): the flagship stage-2 scene (100k
    Gaussians, 512 control points, latent 32), KNN once, a 21-frame
    7-channel sequence at 512^2 with capacity 1024 (t = i/21, the shape of
-   `render_sequence`), then 51 3-channel renders at t=0 (one warm-up and
-   50 timed, the shape of `run_test_fps`). Every launch counter is zeroed
+   `render_sequence`), then 21 3-channel renders at t=0 (one warm-up and
+   20 timed, the shape of `run_test_fps` at a smaller depth). Every launch counter is zeroed
    just before and read just after; each kernel must have launched once
    per render.
 5. Prints the per-stage breakdown of a render (CUDA events).
@@ -31,11 +38,27 @@
    `scripts/bench_train.py`: the flagship scene, 4 motions x 2 views x 2
    frames = 16 renders at 512^2 per step, capacity 1024, ARAP, chamfer
    guidance and both smoothness terms on, from step 300 (every gate
-   open); one warm-up and 5 timed steps. Checks a finite loss, no skipped
+   open); one warm-up and 2 timed steps. Checks a finite loss, no skipped
    step, every group with a learning rate moved, and K1 ch7 = K2 = K3 =
    K4 = 16 launches per step (counters zeroed just before, read just
    after). Prints the step time and its CUDA-event split.
-7. Prints a `kernels` JSON line, the card's name and power limit, and
+7. Drives the two-stage trainer at full width with the window readout
+   route on (`tiles.WINDMA = 1`, so every render launches K7):
+   `Trainer.train_dynamic` on synthetic videos rendered on the card at
+   512^2 (4 motions x 3 views x 5 frames), 512 control points, latent 32,
+   stage-1 capacity 8,192, 200 Gaussians per control point in stage 2
+   (~100k), batch_size 2 (16 renders a step), every loss of
+   `configs/train_config.yaml` but LPIPS. The cadence keys are set so
+   that a densify that adds Gaussians, an opacity reset, an FPS anneal
+   down to 512, `finish_s1`'s prune and checkpoint, `prepare_train_s2`,
+   an s2 prune, mid-run snapshots, an interruption, a resume from the
+   last snapshot in a fresh `Trainer`, and the final `s2/` checkpoint
+   read back all happen, and each is asserted from the trainer's state.
+   Then s2 steps at 256^2 and 512^2 through `train_step_once`. Every
+   launch counter is zeroed just before and read just after: K7 and K1
+   ch7 and K3 must equal the phase's render count, K2 and K4 its stage-2
+   render count.
+8. Prints a `kernels` JSON line, the card's name and power limit, and
    last the device line.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -45,8 +68,11 @@ non-zero at once.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 FP32_PEAK = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
@@ -59,12 +85,32 @@ K1_OPS_BASE = 21
 # per-pixel terms 9, and one add per term into the strip's sums 10
 K3_OPS = 65
 SEQ_FRAMES = 21
-FPS_ROUNDS = 50
+FPS_ROUNDS = 20
 WIDTH = HEIGHT = 512
 CAPACITY = 1024
 TRAIN_SHAPE = (4, 2, 2)        # motions, views, frames (bench_train.py)
-TRAIN_STEPS = 5                # timed, after one warm-up
+TRAIN_STEPS = 2                # timed, after one warm-up
 TRAIN_START = 300              # depth/normal (> 200) and ARAP (< 2000) open
+# the trainer phase: stage lengths and the cadence that makes every event
+# of the schedule happen within them (see main's phase 7)
+S1_ITERS, S2_ITERS = 60, 10
+TRAINER_OPT = dict(
+    ref_size=512, H=512, W=512, fovy=49.1, radius=2, num_views=3,
+    num_frames=5, num_cpts=512, latent_code_dim=32, capacity_s1=8192,
+    num_pts_per_cpt=200, batch_size=2, tile_capacity=CAPACITY,
+    iters_s1=S1_ITERS, iters_s2=S2_ITERS,
+    # s1: the densification window is steps 2..10; densify at 4 and 8,
+    # opacity reset at 10, FPS anneal at 12 (and, with nothing left to cut,
+    # at 24, 36, 48, 60), then quiet steps in which the loss recovers;
+    # checkpoints at 20, 40, 60
+    FPS_iter=12, density_start_iter=2, density_end_iter=10,
+    densification_interval=4, opacity_reset_interval=10, save_inter=20,
+    # s2: prune at 8. The AG init starts every opacity at 0.05 and a step
+    # moves a logit by about 0.05, so the reference's threshold of 0.01
+    # would prune nothing within ten steps; 0.045 makes the prune observable
+    densification_interval_s2=8, densify_opacity_threshold_s2=0.045)
+SNAPSHOT_EVERY = 3             # s2 snapshots after 0, 3, 6, 9 iterations
+INTERRUPT_AT = ("s2", 5)       # the first run is cut here, after a snapshot
 
 
 def fail(msg: str) -> None:
@@ -155,6 +201,229 @@ def small_train_grads(device) -> tuple:
                          for k, v in optim.named_leaves(params).items()}
 
 
+def rel_l2(got, ref) -> float:
+    """|got - ref| / |ref| (L2), or |got| where ref is zero."""
+    import torch
+    norm = float(torch.linalg.norm(ref))
+    return (float(torch.linalg.norm(got - ref)) / norm if norm
+            else float(torch.linalg.norm(got)))
+
+
+def small_s1_step(device) -> dict:
+    """One small stage-1 step (512 Gaussians in a capacity of 1,024, latent
+    8, 2 x 1 x 2 renders at 256^2 from a 512^2 uint8 ground truth, step 150:
+    inside the densification window, ARAP gate opened): the loss, every
+    leaf's gradient and the tap's from `loss_fn`, then `denom`,
+    `max_radii2d` and `xyz_grad_accum` from the full step."""
+    import numpy as np
+    import torch
+    from dimo_tpu_torch.models import gaussians as G
+    from dimo_tpu_torch.train import optim
+    from dimo_tpu_torch.train.step import LossConfig, init_state, make_train_step
+    cfg = G.ModelConfig(latent_dim=8, num_latents=2, capacity=1024,
+                        cpt_capacity=64)
+    params, aux = G.init_model(cfg, seed=4, num_pts=512, num_cpts=64,
+                               device=device)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for lin in (params.timenet.pts_1, params.timenet.rot_1):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * 0.02)
+    batch = train_batch(params, (2, 1, 2), 512, device, seed=2)
+    del batch["guidance"]
+    fn = make_train_step(cfg, LossConfig(arap_start_iter_s1=100), "s1", 256,
+                         256, 2, 1, 2, capacity=CAPACITY)
+    times = np.linspace(0.05, 0.95, 8)
+    state = init_state(params, aux, step=149, seed=8)
+    tap = torch.zeros((1024, 2), device=params.xyz.device, requires_grad=True)
+    loss, _ = fn.loss_fn(state.params, state.aux, batch, 150, arap_times=times,
+                         generator=state.rng, tap=tap)
+    loss.backward()
+    grads = {k: (v.grad.detach().cpu() if v.grad is not None
+                 else torch.zeros_like(v).cpu())
+             for k, v in optim.named_leaves(params).items()}
+    grads["mean2d_tap"] = tap.grad.detach().cpu()
+    state.rng.manual_seed(8)
+    state, metrics = fn(state, batch, arap_times=times)
+    return {"loss": float(loss.detach()), "grads": grads,
+            "skipped": int(metrics["nonfinite_grad"]),
+            "aux": {f: getattr(state.aux, f).cpu() for f in
+                    ("denom", "max_radii2d", "xyz_grad_accum")}}
+
+
+class Interrupted(Exception):
+    """Raised by the trainer phase's logger to cut a run short."""
+
+
+def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
+                  s2_iters: int, snapshot_every: int, interrupt_at: tuple,
+                  extra_steps=((299, 2), (449, 3))) -> dict:
+    """The two-stage trainer through `Trainer.train_dynamic`: a first run
+    cut at `interrupt_at` (stage, step), a fresh Trainer that resumes from
+    the last snapshot and finishes, the final checkpoint read back, then
+    `extra_steps` = ((step to set, steps to take), ...) through
+    `train_step_once` at the later resolutions. Asserts every event of the
+    cadence from the trainer's state; returns counts and timings."""
+    import torch
+    from dimo_tpu_torch.io.synthetic import make_synthetic_videos
+    from dimo_tpu_torch.models import gaussians as G
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.train.loop import Trainer, render_resolution_for_step
+    on_card = torch.device(device).type == "cuda"
+
+    def stamp():
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.time()
+
+    def ms_between(a, b) -> float:
+        return a.elapsed_time(b) if on_card else (b - a) * 1e3
+
+    t0 = time.time()
+    images, masks, meta = make_synthetic_videos(device=device, **synth_kw)
+    synth_s = time.time() - t0
+    if not (masks.max() > 200 and images.std() > 10):
+        fail("trainer: the synthetic videos are blank")
+    root = tempfile.mkdtemp(prefix="dimo_smoke_")
+    try:
+        opt = tiny_synthetic_opt(save_path=os.path.join(root, "run"), **opt_kw)
+        snap = os.path.join(root, "snap")
+        num_cpts = int(opt.num_cpts)
+        bs = int(opt.batch_size)
+        b = (min(2 * bs, len(meta["input_videos"]))
+             * min(bs, int(opt.num_views)) * min(bs, int(opt.num_frames)))
+        log = []          # (stage, step, resolution, loss, skipped, n_active,
+        #                    max opacity, stamp)
+
+        def logger(trainer):
+            def log_fn(stage, step, m):
+                log.append((stage, step, render_resolution_for_step(step),
+                            float(m["loss"]), int(m["nonfinite_grad"]),
+                            int(G.num_active(trainer.state.aux)),
+                            float(G.get_opacity(trainer.state.params)
+                                  .detach().max()),
+                            stamp()))
+                if (stage, step) == interrupt_at and trainer is first:
+                    raise Interrupted
+            return log_fn
+
+        t0 = time.time()
+        first = Trainer(opt, images, masks, meta, device=device)
+        first.log_fn = logger(first)
+        start = stamp()
+        try:
+            first.train_dynamic(s1_iters, s2_iters,
+                                snapshot_every=snapshot_every,
+                                snapshot_dir=snap)
+            fail("trainer: the first run was not interrupted")
+        except Interrupted:
+            pass
+        cut = len(log)
+        s1 = [e for e in log if e[0] == "s1"]
+        n_at = {e[1]: e[5] for e in s1}       # n_active as step's log saw it
+        fps, d0 = int(opt.FPS_iter), int(opt.densification_interval)
+        reset = int(opt.opacity_reset_interval)
+        # a densify that adds Gaussians (logged by the step after it)
+        if not n_at[d0 + 1] > n_at[d0] == num_cpts:
+            fail(f"trainer: densify at {d0} did not add Gaussians "
+                 f"({n_at[d0]} -> {n_at[d0 + 1]})")
+        op = {e[1]: e[6] for e in s1}
+        if not (op[reset] > 0.02 and op[reset + 1] < 0.02):
+            fail(f"trainer: opacity reset at {reset}: max opacity "
+                 f"{op[reset]} -> {op[reset + 1]}")
+        if not (n_at[fps] > num_cpts >= n_at[fps + 1]):
+            fail(f"trainer: FPS anneal at {fps}: {n_at[fps]} -> "
+                 f"{n_at[fps + 1]}, wanted > {num_cpts} -> <= {num_cpts}")
+        for name in ("point_cloud.ply",
+                     f"point_cloud_{int(opt.save_inter)}.ply",
+                     "timenet.pth", "latent_codes.npz"):
+            if not os.path.exists(os.path.join(opt.save_path, "s1", name)):
+                fail(f"trainer: s1 checkpoint file {name} is missing")
+        # finish_s1's prune -> the control points of stage 2
+        k = int(first.state.aux.c_active.sum())
+        n_s2 = -(-k * int(opt.num_pts_per_cpt) // 2048) * 2048
+        if not (0 < k <= n_at[s1_iters] and first.stage == "s2"
+                and first.mcfg.capacity == n_s2
+                and first.state.params.xyz.shape[0] == n_s2):
+            fail(f"trainer: s1 -> s2: {k} control points of "
+                 f"{n_at[s1_iters]}, capacity {first.mcfg.capacity}")
+        traj = first.cpts_s1.shape
+        if traj != (len(meta["input_videos"]), int(opt.num_frames),
+                    first.mcfg.cpt_capacity, 3):
+            fail(f"trainer: cached trajectories of shape {traj}")
+        if first.peek_snapshot_phase(snap) != "s2":
+            fail("trainer: no s2 snapshot was left by the interrupted run")
+
+        # a fresh Trainer resumes from the last snapshot and finishes
+        done = (interrupt_at[1] - 1) // snapshot_every * snapshot_every
+        second = Trainer(opt, images, masks, meta, device=device)
+        second.log_fn = logger(second)
+        second.train_dynamic(s1_iters, s2_iters,
+                             snapshot_every=snapshot_every, snapshot_dir=snap)
+        resumed = [(e[0], e[1]) for e in log[cut:]]
+        if resumed != [("s2", i) for i in range(done + 1, s2_iters + 1)]:
+            fail(f"trainer: resumed run took steps {resumed}, expected s2 "
+                 f"{done + 1}..{s2_iters}")
+        if second.peek_snapshot_phase(snap) is not None:
+            fail("trainer: the finished run left its snapshot")
+        s2 = [e for e in log if e[0] == "s2"]
+        prune_at = int(opt.densification_interval_s2)
+        pruned = {e[1]: e[5] for e in log[cut:]}
+        n_after_ag = k * int(opt.num_pts_per_cpt)
+        if not (s2[0][5] == n_after_ag
+                and 0 < pruned[prune_at + 1] < n_after_ag):
+            fail(f"trainer: s2 prune at {prune_at}: {n_after_ag} -> "
+                 f"{pruned[prune_at + 1]}")
+        n_final = int(G.num_active(second.state.aux))
+
+        # the final s2 checkpoint, read back
+        third = Trainer(opt, images, masks, meta, device=device)
+        third.load_checkpoint("s2")
+        if (int(G.num_active(third.state.aux)) != n_final
+                or int(third.state.aux.c_active.sum()) != k
+                or not torch.equal(
+                    third.state.params.xyz[third.state.aux.active],
+                    second.state.params.xyz[second.state.aux.active])):
+            fail("trainer: the s2 checkpoint does not read back")
+
+        # s2 steps at the later resolutions, through train_step_once
+        for at, count in extra_steps:
+            second.step = at
+            for _ in range(count):
+                second.train_step_once()
+        if on_card:
+            torch.cuda.synchronize()
+        wall_s = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    bad = [(e[0], e[1]) for e in log if not (e[3] == e[3] and abs(e[3]) <
+                                             float("inf")) or e[4]]
+    if bad:
+        fail(f"trainer: non-finite loss or skipped step at {bad}")
+    head = sum(e[3] for e in s1[:5]) / 5
+    tail = sum(e[3] for e in s1[-5:]) / 5
+    if not tail < head:
+        fail(f"trainer: s1 loss did not fall ({head} -> {tail})")
+    per = {}
+    stamps = [start] + [e[7] for e in log]
+    for prev, e in zip(stamps, log):
+        per.setdefault((e[0], e[2]), []).append(ms_between(prev, e[7]))
+    stage_s = {st: sum(sum(v) for (s_, _), v in per.items() if s_ == st) / 1e3
+               for st in ("s1", "s2")}
+    return {"steps": len(log),
+            "s2_steps": sum(1 for e in log if e[0] == "s2"),
+            "renders_per_step": b, "k": k, "n_s2": n_after_ag,
+            "n_final": n_final, "n_at": n_at, "synth_s": synth_s,
+            "wall_s": wall_s, "stage_s": stage_s,
+            "ms_per_step": {f"{st}@{res}": (sum(v) / len(v), len(v))
+                            for (st, res), v in per.items()},
+            "loss_s1": (head, tail), "loss_s2_last": log[-1][3],
+            "losses_s1": [round(e[3], 1) for e in s1],
+            "resumed_at": done + 1}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -165,7 +434,8 @@ def main() -> None:
         from dimo_tpu_torch.models.renderer import find_knn, render
         from dimo_tpu_torch.ops import smallgather as sg
         from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
-        from dimo_tpu_torch.ops.rasterizer import projection, strips
+        from dimo_tpu_torch.ops.rasterizer import projection, strips, tiles
+        from dimo_tpu_torch.ops.rasterizer import windowdma as wd
         from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
         from dimo_tpu_torch.scenes import flagship_scene
         from dimo_tpu_torch.train import optim
@@ -324,6 +594,66 @@ def main() -> None:
           f"{k4_lib:.4f})")
     torch.cuda.synchronize()
 
+    # --- 2e. K7 against its plain version; the lists by both routes -----
+    t_phase = time.time()
+    seen = {}
+    real_gather = wd.gather_windows
+
+    def spy(pairs_, starts_, capacity_):
+        seen.update(pairs=pairs_, starts=starts_)
+        return real_gather(pairs_, starts_, capacity_)
+
+    def strip_lists():
+        return strips.build_strip_lists(p.mean2d, p.cull_radius, p.depth,
+                                        p.in_frustum, HEIGHT, WIDTH, CAPACITY)
+
+    tiles.WINDMA, wd.gather_windows = 1, spy
+    try:
+        lists_w = strip_lists()
+    finally:
+        tiles.WINDMA, wd.gather_windows = 0, real_gather
+    torch.cuda.synchronize()
+    for f in ("idx", "count", "overflow", "overflow_max"):
+        if not torch.equal(getattr(lists_w, f), getattr(lists, f)):
+            fail(f"strip lists by the two readout routes differ in {f}")
+    pairs, starts = seen["pairs"], seen["starts"]
+    nd, nt = pairs.shape[0], starts.shape[0]
+    got = wd.gather_windows(pairs, starts, CAPACITY)
+    ref = wd.gather_windows_plain(pairs, starts, CAPACITY)
+    torch.cuda.synchronize()
+    k7_err = float((got.long() - ref.long()).abs().max())
+    if got.shape != (nt, CAPACITY, 2) or not torch.equal(got, ref):
+        fail(f"K7 disagrees with its plain version: max |err| {k7_err}")
+    starts_end = starts.clone()
+    starts_end[-4:] = torch.tensor([nd - 70, nd - 40, nd - 3, nd],
+                                   dtype=torch.int32, device=dev)
+    got = wd.gather_windows(pairs, starts_end, 64)
+    ref = wd.gather_windows_plain(pairs, starts_end, 64)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref) or bool(got[-1].any()) \
+            or not bool(got[-2, :3].any()) or bool(got[-2, 3:].any()):
+        fail("K7 disagrees with its plain version at capacity 64 with "
+             "windows overrunning the array end")
+    rows_lib = (starts[:, None] + torch.arange(CAPACITY, device=dev)[None]
+                ).clamp_max(nd - 1).long()
+    k7_ms = cuda_ms(lambda: wd.gather_windows(pairs, starts, CAPACITY), 200)
+    k7_plain = cuda_ms(lambda: wd.gather_windows_plain(pairs, starts,
+                                                       CAPACITY), 50)
+    k7_lib = cuda_ms(lambda: pairs[rows_lib], 200)
+    k7_bytes = 2 * nt * CAPACITY * 8 + nt * 4
+    route_ms = {0: [], 1: []}
+    for route in (0, 1, 1, 0) * 3:
+        tiles.WINDMA = route
+        route_ms[route].append(cuda_ms(strip_lists, 5, warmup=1))
+    tiles.WINDMA = 0
+    route_ms = {r: sum(v) / len(v) for r, v in route_ms.items()}
+    print(f"K7 gather_windows ({nd}, 2) x ({nt},) capacity {CAPACITY}: "
+          f"bit-exact vs plain (also at capacity 64 past the array end); "
+          f"{k7_ms:.4f} ms (plain {k7_plain:.4f}, advanced index "
+          f"{k7_lib:.4f}); strip lists equal by both routes; binning stage "
+          f"{route_ms[0]:.3f} ms by gather, {route_ms[1]:.3f} ms by K7 "
+          f"(mean of 6 x 5, alternating); phase {time.time() - t_phase:.1f} s")
+
     # --- 3. small render on the card vs the same render on the CPU ------
     small = []
     for where in (dev, torch.device("cpu")):
@@ -365,6 +695,43 @@ def main() -> None:
     print(f"small train step 2x1x2 at 256^2: loss card {loss_gpu:.6f} CPU "
           f"{loss_cpu:.6f}; worst gradient {worst[0]} relative L2 "
           f"{worst[1]:.3g} ({len(g_cpu)} leaves; {time.time() - t0:.1f} s)")
+
+    # --- 3c. small stage-1 step on the card vs the CPU -------------------
+    t0 = time.time()
+    s1_gpu, s1_cpu = small_s1_step(dev), small_s1_step(torch.device("cpu"))
+    if s1_gpu["skipped"] or s1_cpu["skipped"]:
+        fail("small s1 step: the step was skipped as non-finite")
+    if not abs(s1_gpu["loss"] - s1_cpu["loss"]) <= 1e-4 * abs(s1_cpu["loss"]):
+        fail(f"small s1 step: loss card {s1_gpu['loss']} vs CPU "
+             f"{s1_cpu['loss']}")
+    # with one shared radius the covariance does not depend on the
+    # rotations: their gradient is rounding noise on both devices
+    noise = 1e-6 * float(torch.linalg.norm(s1_cpu["grads"]["xyz"]))
+    worst = ("", 0.0)
+    for k, ref in s1_cpu["grads"].items():
+        if float(torch.linalg.norm(ref)) < noise:
+            if float(torch.linalg.norm(s1_gpu["grads"][k])) >= noise:
+                fail(f"small s1 step: gradient of {k} is noise on the CPU "
+                     "and not on the card")
+            continue
+        rel = rel_l2(s1_gpu["grads"][k], ref)
+        if not rel <= 1e-3:
+            fail(f"small s1 step: gradient of {k} card vs CPU relative L2 "
+                 f"{rel}")
+        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    if float(s1_cpu["grads"]["mean2d_tap"].abs().sum()) == 0:
+        fail("small s1 step: the tap carries no gradient")
+    for f in ("denom", "max_radii2d"):
+        if not torch.equal(s1_gpu["aux"][f], s1_cpu["aux"][f]) \
+                or float(s1_cpu["aux"][f].sum()) <= 0:
+            fail(f"small s1 step: {f} differs between card and CPU")
+    acc = rel_l2(s1_gpu["aux"]["xyz_grad_accum"], s1_cpu["aux"]["xyz_grad_accum"])
+    if not acc <= 1e-3:
+        fail(f"small s1 step: xyz_grad_accum card vs CPU relative L2 {acc}")
+    print(f"small s1 step 2x1x2 at 256^2 (GT 512^2 resized): loss card "
+          f"{s1_gpu['loss']:.6f} CPU {s1_cpu['loss']:.6f}; worst gradient "
+          f"{worst[0]} relative L2 {worst[1]:.3g}; denom and max_radii2d "
+          f"equal, xyz_grad_accum {acc:.3g} ({time.time() - t0:.1f} s)")
 
     # --- 4. the serving path (no graph recorded) --------------------------
     with torch.no_grad():
@@ -528,6 +895,46 @@ def main() -> None:
         ("loss", "mse", "psnr", "ssim_loss", "mask_loss", "smooth",
          "bilateral", "arap", "ga", "grad_norm", "overflow")))
 
+    # --- 7. the two-stage trainer, window readout route on ---------------
+    del state, batch, step_fn, before, after, metrics
+    torch.cuda.empty_cache()
+    tiles.WINDMA = 1
+    print(f"trainer path: tiles.WINDMA = {tiles.WINDMA} (every render reads "
+          "its bin windows through K7)")
+    cs.launches = dict.fromkeys(cs.launches, 0)
+    sg.launches = sg.bwd_launches = wd.launches = 0
+    tp = trainer_phase(
+        dev, dict(num_motions=4, num_views=3, num_frames=5, ref_size=512,
+                  n_gauss=60, seed=0), TRAINER_OPT, S1_ITERS, S2_ITERS,
+        SNAPSHOT_EVERY, INTERRUPT_AT)
+    tiles.WINDMA = 0
+    tr_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
+                 "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
+                 "K7": wd.launches}
+    renders = tp["steps"] * tp["renders_per_step"]
+    renders_s2 = tp["s2_steps"] * tp["renders_per_step"]
+    want = {"K1 ch7": renders, "K3": renders, "K7": renders,
+            "K2": renders_s2, "K4": renders_s2}
+    if tr_launch != want or cs.launches["ch3"]:
+        fail(f"trainer launches {tr_launch} (ch3 {cs.launches['ch3']}), "
+             f"expected {want}")
+    print(f"trainer path: {tp['steps']} steps of {tp['renders_per_step']} "
+          f"renders ({tp['s2_steps']} in s2); s1 {S1_ITERS} iters: "
+          f"n_active by step {tp['n_at']}; {tp['k']} control points -> "
+          f"{tp['n_s2']} Gaussians in s2, {tp['n_final']} after the prunes; "
+          f"interrupted at {INTERRUPT_AT}, resumed at s2 step "
+          f"{tp['resumed_at']}; s1 loss {tp['loss_s1'][0]:.1f} -> "
+          f"{tp['loss_s1'][1]:.1f} (mean of first/last 5), last s2 loss "
+          f"{tp['loss_s2_last']:.1f}")
+    print(f"trainer s1 losses: {tp['losses_s1']}")
+    print("trainer ms/step (CUDA events, cadence work included; mean, steps): "
+          + " ".join(f"{k}={v[0]:.1f}x{v[1]}"
+                     for k, v in tp["ms_per_step"].items())
+          + f"; stage seconds s1={tp['stage_s']['s1']:.2f} "
+          f"s2={tp['stage_s']['s2']:.2f}; synthetic videos "
+          f"{tp['synth_s']:.2f} s; phase wall {tp['wall_s']:.1f} s; launches "
+          f"{tr_launch}")
+
     # --- kernels line, card, device --------------------------------------
     def bound(ops: float, nbytes: float) -> dict:
         t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
@@ -539,7 +946,9 @@ def main() -> None:
         return {"name": f"composite_strips_fwd_{key}", "route": "cuda",
                 "source": "dimo_tpu_torch/csrc/composite_strips.cu",
                 "replaces": "dimo_tpu/ops/rasterizer/composite_strips.py:326",
-                "launches": k1_launch[key], "max_abs_err": r["err"],
+                "launches": k1_launch[key],
+                "launches_trainer": tr_launch.get(f"K1 {key}", 0),
+                "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 **bound(r["ops"], r["bytes"]), "library_ms": None,
                 "entries": r["entries"]}
@@ -553,24 +962,37 @@ def main() -> None:
              "source": "dimo_tpu_torch/csrc/smallgather.cu",
              "replaces": "dimo_tpu/ops/smallgather.py:200",
              "launches": train_launch["K2"], "launches_render": k2_launch,
+             "launches_trainer": tr_launch["K2"],
              "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
              **bound(0.0, k2_bytes), "library_ms": k2_lib},
             {"name": "composite_strips_bwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/composite_strips.cu",
              "replaces": "dimo_tpu/ops/rasterizer/composite_strips.py:394",
-             "launches": train_launch["K3"], "max_abs_err": k3_err,
+             "launches": train_launch["K3"],
+             "launches_trainer": tr_launch["K3"], "max_abs_err": k3_err,
              "max_rel_lane_err": k3_rel, "ms": k3_ms, "plain_ms": k3_plain,
              **bound(k3_ops, k3_bytes), "library_ms": None,
              "entries": k3_entries},
             {"name": "gather_small_cols_bwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/smallgather.cu",
              "replaces": "dimo_tpu/ops/smallgather.py:212",
-             "launches": train_launch["K4"], "max_abs_err": k4_err,
+             "launches": train_launch["K4"],
+             "launches_trainer": tr_launch["K4"], "max_abs_err": k4_err,
              "ms": k4_ms, "plain_ms": k4_plain, **bound(0.0, k4_bytes),
-             "library_ms": k4_lib}]
+             "library_ms": k4_lib},
+            {"name": "gather_windows", "route": "cuda",
+             "source": "dimo_tpu_torch/csrc/windowdma.cu",
+             "replaces": "dimo_tpu/ops/rasterizer/windowdma.py:35",
+             "launches": tr_launch["K7"], "launches_trainer": tr_launch["K7"],
+             "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain,
+             **bound(0.0, k7_bytes), "library_ms": k7_lib,
+             "binning_ms_gather": route_ms[0], "binning_ms_k7": route_ms[1]}]
     print(json.dumps({"fps_ch3": fps,
                       "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
-                      "train_step_ms": step_ms, "train_split_ms": split}))
+                      "train_step_ms": step_ms, "train_split_ms": split,
+                      "trainer_ms_per_step": tp["ms_per_step"],
+                      "trainer_stage_s": tp["stage_s"],
+                      "trainer_wall_s": tp["wall_s"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-KERNELS = ("composite_strips", "smallgather")
+KERNELS = ("composite_strips", "smallgather", "windowdma")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]

@@ -36,17 +36,33 @@ def _t(a, dev, dtype=torch.float32) -> torch.Tensor:
         device=dev, dtype=dtype)
 
 
+def _timenet_layers(net: TimeNet) -> dict:
+    """{JAX leaf prefix: nn.Linear} of a TimeNet: the one place that maps
+    the module's layers to the JAX package's leaf names."""
+    layers = {f"trunk_{i}": net.trunk[i] for i in range(DEPTH)}
+    layers.update(pts_0=net.pts_0, pts_1=net.pts_1, rot_0=net.rot_0,
+                  rot_1=net.rot_1)
+    return layers
+
+
+def timenet_to_numpy(net: TimeNet) -> dict:
+    """The JAX leaves of a TimeNet (inverse of `timenet_from_numpy`):
+    {prefix}_w in (fan_in, fan_out), {prefix}_b."""
+    out = {}
+    for name, lin in _timenet_layers(net).items():
+        out[f"{name}_w"] = lin.weight.detach().cpu().numpy().T.copy()
+        out[f"{name}_b"] = lin.bias.detach().cpu().numpy().copy()
+    return out
+
+
 def timenet_from_numpy(leaves: dict, device="cuda") -> TimeNet:
     """TimeNet with the JAX leaves' weights (trunk_{i}_w/b, pts_{0,1}_w/b,
     rot_{0,1}_w/b; weights in (fan_in, fan_out))."""
     dev = resolve_device(device)
     latent_dim = int(np.asarray(leaves["trunk_0_w"]).shape[0]) - input_dim(0)
     net = TimeNet(latent_dim)
-    layers = {f"trunk_{i}": net.trunk[i] for i in range(DEPTH)}
-    layers.update(pts_0=net.pts_0, pts_1=net.pts_1, rot_0=net.rot_0,
-                  rot_1=net.rot_1)
     with torch.no_grad():
-        for name, lin in layers.items():
+        for name, lin in _timenet_layers(net).items():
             w = _t(leaves[f"{name}_w"], "cpu").T
             b = _t(leaves[f"{name}_b"], "cpu")
             if w.shape != lin.weight.shape or b.shape != lin.bias.shape:

@@ -12,9 +12,14 @@ Stage semantics:
   * s2: per-Gaussian `scaling`; control points `c_xyz` with per-point
     log-radius `c_radius`; deformation via KNN linear-blend skinning.
 
-The train step (`train/step.py`) trains these leaves in place. The
-densify / prune mutations (`dimo_tpu/models/gaussians.py:274-467`, with
-their Adam-moment surgery) come with the trainer.
+The train step (`train/step.py`) trains these leaves in place, and so do
+the densify / prune / FPS mutations below: they write rows of the
+existing leaves (and of the Adam moments, dicts keyed by leaf name as
+`train/optim.py::named_leaves` names them) under `torch.no_grad()`, so
+the optimizer keeps addressing the same tensors. Clone and split write
+into free slots, prune clears mask bits; the slot a new Gaussian lands in
+is the reference's (the r-th selected row goes to the r-th free slot, and
+rows beyond the free slots are dropped).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from dimo_tpu_torch.models.timenet import TimeNet
-from dimo_tpu_torch.ops import neighbors, sh as sh_ops
+from dimo_tpu_torch.ops import neighbors, quat as quat_ops, sh as sh_ops
 from dimo_tpu_torch.utils.general import inverse_sigmoid, resolve_device
 
 
@@ -252,3 +257,207 @@ def init_model(cfg: ModelConfig, seed: int = 0, num_pts: int = 512,
     )
     aux = aux.replace(c_active=torch.from_numpy(c_active).to(dev))
     return params, aux
+
+
+def initialize_ag(cfg: ModelConfig, params: GaussianParams, aux: GaussianAux,
+                  seed: int, num_pts_per_cpt: int = 200,
+                  init_ratio: float = 1.0) -> tuple[GaussianParams, GaussianAux]:
+    """Adaptive-Gaussian init for stage 2: `num_pts_per_cpt` Gaussians in a
+    ball of radius mean(c_radius) * init_ratio around every active control
+    point, drawn from numpy's RandomState(seed) as the reference draws
+    them."""
+    rng = np.random.RandomState(seed)
+    c_act = aux.c_active.cpu().numpy()
+    c_rad = np.exp(params.c_radius.detach().cpu().numpy())[c_act]
+    centers = params.c_xyz.detach().cpu().numpy()[c_act]
+    num_cpts = centers.shape[0]
+
+    ball = _random_ball(rng, num_pts_per_cpt, float(c_rad.mean()) * init_ratio)
+    pts = (centers[:, None, :] + ball[None, :, :]).reshape(-1, 3)
+    colors = sh_ops.sh_to_rgb(
+        rng.random((num_cpts * num_pts_per_cpt, 3)).astype(np.float32) / 255.0)
+    return set_points_from_cloud(cfg, params, aux, pts, colors)
+
+
+# ---------------------------------------------------------------------------
+# densification / pruning (in place, under no_grad)
+
+_PER_GAUSSIAN = ("xyz", "features_dc", "features_rest", "scaling",
+                 "rotation", "opacity")
+
+
+def _free_slot_of_rank(active: torch.Tensor) -> torch.Tensor:
+    """Map rank r -> index of the (r+1)-th inactive slot; `capacity` for
+    ranks beyond the free slots. (capacity,) int64."""
+    cap = active.shape[0]
+    free = torch.nonzero(~active)[:, 0]
+    slot_of_rank = torch.full((cap,), cap, dtype=torch.int64,
+                              device=active.device)
+    slot_of_rank[:free.shape[0]] = free
+    return slot_of_rank
+
+
+def _dest_of_selected(active: torch.Tensor, sel: torch.Tensor):
+    """(dest, ok): row i of the selection goes to free slot dest[i] where
+    ok[i]; selected rows beyond the free slots are dropped."""
+    cap = active.shape[0]
+    slot_of_rank = _free_slot_of_rank(active)
+    rank = torch.cumsum(sel.to(torch.int64), 0) - 1
+    dest = slot_of_rank[rank.clamp(0, cap - 1)]
+    return dest, sel & (dest < cap)
+
+
+@torch.no_grad()
+def _scatter_rows(params: GaussianParams, dest: torch.Tensor, new_vals: dict,
+                  ok: torch.Tensor) -> GaussianParams:
+    """Write new_vals[name][i] into row dest[i] of leaf `name` where ok."""
+    rows = dest[ok]
+    for name, val in new_vals.items():
+        getattr(params, name)[rows] = val[ok]
+    return params
+
+
+@torch.no_grad()
+def _zero_moment_rows(moments: tuple, dest: torch.Tensor, ok: torch.Tensor):
+    """Zero the Adam moments of the per-Gaussian leaves at rows dest[ok]."""
+    rows = dest[ok]
+    for m in moments:
+        for name in _PER_GAUSSIAN:
+            m[name][rows] = 0.0
+    return moments
+
+
+@torch.no_grad()
+def add_densification_stats(aux: GaussianAux, mean2d_grad: torch.Tensor,
+                            visibility: torch.Tensor) -> GaussianAux:
+    """Accumulate ||dL/dmeans2D|| for visible gaussians."""
+    norm = torch.linalg.norm(mean2d_grad[:, :2], dim=-1)
+    return aux.replace(
+        xyz_grad_accum=aux.xyz_grad_accum
+        + torch.where(visibility, norm, torch.zeros_like(norm)),
+        denom=aux.denom + visibility.to(aux.denom.dtype))
+
+
+@torch.no_grad()
+def update_max_radii(aux: GaussianAux, radii: torch.Tensor,
+                     visibility: torch.Tensor) -> GaussianAux:
+    return aux.replace(max_radii2d=torch.where(
+        visibility, torch.maximum(aux.max_radii2d, radii), aux.max_radii2d))
+
+
+@torch.no_grad()
+def densify_and_prune(cfg: ModelConfig, params: GaussianParams,
+                      aux: GaussianAux, moments: tuple, stage: str,
+                      max_grad: float, min_opacity: float, extent: float,
+                      max_screen_size: float | None,
+                      generator: torch.Generator | None = None, noise=None):
+    """Clone + split + prune. moments: (mu, nu) Adam moment dicts; rows
+    that receive a new Gaussian get zero moments. The split's noise comes
+    from `generator`, or is given as `noise` (n_split, capacity, 3).
+    Returns (params, aux, moments); the screen-size prune is inert, as in
+    the reference (its max_radii2D is zeroed just before it is read)."""
+    grads = torch.nan_to_num(aux.xyz_grad_accum
+                             / torch.clamp_min(aux.denom, 1.0))
+    max_scale = torch.amax(get_scaling(params, stage), dim=1)
+    dense_lim = cfg.percent_dense * extent
+
+    clone_sel = (grads >= max_grad) & (max_scale <= dense_lim) & aux.active
+    params, aux, moments = _clone(params, aux, moments, clone_sel)
+
+    split_sel = (grads >= max_grad) & (max_scale > dense_lim) & aux.active
+    params, aux, moments = _split(params, aux, moments, split_sel, stage,
+                                  generator=generator, noise=noise)
+
+    prune_mask = get_opacity(params)[:, 0] < min_opacity
+    if max_screen_size:
+        prune_mask = prune_mask | (
+            torch.amax(get_scaling(params, stage), dim=1) > 0.1 * extent)
+    params, aux = prune(params, aux, prune_mask)
+
+    aux = aux.replace(
+        xyz_grad_accum=torch.zeros_like(aux.xyz_grad_accum),
+        denom=torch.zeros_like(aux.denom),
+        max_radii2d=torch.zeros_like(aux.max_radii2d))
+    return params, aux, moments
+
+
+@torch.no_grad()
+def _clone(params, aux, moments, sel):
+    dest, ok = _dest_of_selected(aux.active, sel)
+    new_vals = {name: getattr(params, name) for name in _PER_GAUSSIAN}
+    params = _scatter_rows(params, dest, new_vals, ok)
+    active = aux.active.clone()
+    active[dest[ok]] = True
+    moments = _zero_moment_rows(moments, dest, ok)
+    return params, aux.replace(active=active), moments
+
+
+@torch.no_grad()
+def _split(params, aux, moments, sel, stage, n_split: int = 2,
+           generator: torch.Generator | None = None, noise=None):
+    """Replace each selected Gaussian by `n_split` smaller ones sampled
+    inside it. noise: (n_split, capacity, 3) standard normal draws (the
+    tests pass the reference's); drawn from `generator` otherwise."""
+    scaling = get_scaling(params, stage)
+    R = quat_ops.to_matrix(params.rotation)
+    if noise is None:
+        if generator is None:
+            raise ValueError("_split: a generator or noise is required")
+        noise = torch.randn((n_split,) + tuple(params.xyz.shape),
+                            generator=generator,
+                            device=generator.device).to(params.xyz.device)
+    # rows are read at the selected slots and written to free ones, so the
+    # leaves can be read while they are being filled
+    src = {name: getattr(params, name) for name in _PER_GAUSSIAN}
+    active = aux.active.clone()
+    for s in range(n_split):
+        dest, ok = _dest_of_selected(active, sel)
+        new_xyz = torch.einsum("nij,nj->ni", R, noise[s] * scaling) + params.xyz
+        vals = dict(src, xyz=new_xyz,
+                    scaling=torch.log(scaling / (0.8 * n_split)))
+        params = _scatter_rows(params, dest, vals, ok)
+        active[dest[ok]] = True
+        moments = _zero_moment_rows(moments, dest, ok)
+    # the split originals are pruned
+    return params, aux.replace(active=active & ~sel), moments
+
+
+def prune(params: GaussianParams, aux: GaussianAux, prune_mask: torch.Tensor):
+    """Deactivate gaussians where prune_mask."""
+    return params, aux.replace(active=aux.active & ~prune_mask)
+
+
+@torch.no_grad()
+def prune_only(cfg: ModelConfig, params, aux, stage: str, min_opacity: float,
+               extent: float, max_screen_size: float | None):
+    """The stage-2 periodic prune: by opacity and world size (the
+    screen-size criterion is inert in the reference there too)."""
+    mask = get_opacity(params)[:, 0] < min_opacity
+    if max_screen_size:
+        mask = mask | (torch.amax(get_scaling(params, stage), dim=1)
+                       > 0.1 * extent)
+    return prune(params, aux, mask & aux.active)
+
+
+@torch.no_grad()
+def reset_opacity(params: GaussianParams, moments: tuple):
+    """Clamp opacity to <= 0.01 and zero its Adam moments."""
+    cap = torch.minimum(get_opacity(params),
+                        params.opacity.new_tensor(0.01))
+    params.opacity.copy_(inverse_sigmoid(cap))
+    for m in moments:
+        m["opacity"].zero_()
+    return params, moments
+
+
+@torch.no_grad()
+def fps_anneal(params: GaussianParams, aux: GaussianAux, num_pts: int):
+    """Keep `num_pts` farthest-point-sampled active gaussians (s1 anneal)."""
+    idx = neighbors.farthest_point_sampling(params.xyz, num_pts, aux.active)
+    keep = torch.zeros_like(aux.active)
+    keep[idx.long()] = True
+    return params, aux.replace(active=keep & aux.active)
+
+
+def num_active(aux: GaussianAux) -> torch.Tensor:
+    return torch.sum(aux.active.to(torch.int32))

@@ -19,7 +19,7 @@ from dimo_tpu_torch.models import gaussians as G
 from dimo_tpu_torch.ops import grad_conventions as gc
 from dimo_tpu_torch.ops import neighbors
 from dimo_tpu_torch.ops import quat as quat_ops
-from dimo_tpu_torch.ops.rasterizer import rasterize
+from dimo_tpu_torch.ops.rasterizer import rasterize, rasterize_dense
 
 
 @torch.no_grad()
@@ -57,14 +57,19 @@ def render(
     knn_cache=None,
     scaling_modifier: float = 1.0,
     override_color: torch.Tensor | None = None,
+    mean2d_tap: torch.Tensor | None = None,
     local_frame: bool = True,
     capacity: int = 512,
+    use_oracle: bool = False,
     channels: int = 7,
 ):
     """Render one (camera, time, motion) job.
 
     knn_cache: optional (nn_dist, nn_idx) from find_knn, to run the KNN
     once for many renders. rng: VAE reparameterization noise (None = mean).
+    mean2d_tap: zero (N, 2) tensor whose gradient is the NDC-scaled
+    dL/dmean2D (`ops/rasterizer/api.py`). use_oracle: composite densely
+    (`rasterize_dense`; capacity and channels do not apply).
     """
     latent = G.sample_latent(params, latent_index, rng)
     opacity = G.get_opacity(params)
@@ -89,12 +94,14 @@ def render(
         cpts_t = means3d
         rotations = quat_ops.normalize(params.rotation)
 
-    out = rasterize(
+    raster = rasterize_dense if use_oracle else rasterize
+    kwargs = {} if use_oracle else {"capacity": capacity, "channels": channels}
+    out = raster(
         means3d, scales, rotations, opacity, G.get_features(params),
         camera, width, height, bg,
         sh_degree=cfg.sh_degree, scale_modifier=scaling_modifier,
         override_color=override_color, valid=aux.active,
-        capacity=capacity, channels=channels)
+        mean2d_tap=mean2d_tap, **kwargs)
 
     return {
         # jnp.clip's slope at 0 and 1 is 0.5: white-background pixels sit

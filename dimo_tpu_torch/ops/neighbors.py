@@ -3,8 +3,9 @@
 Counterpart of the parts of `dimo_tpu/ops/neighbors.py` that the render
 path, the model init and the train step use: `pairwise_sq_dists` (read by
 `models/renderer.find_knn` and `ops/arap.py`), `mean_sq_dist_3nn` (read
-by `models/gaussians.init_model`) and `chamfer_forward` (the stage-2
-guidance loss).
+by `models/gaussians.init_model`), `chamfer_forward` (the stage-2
+guidance loss) and `farthest_point_sampling` (the stage-1 anneal of the
+control points, `models/gaussians.fps_anneal`).
 """
 from __future__ import annotations
 
@@ -46,3 +47,28 @@ def chamfer_forward(x: torch.Tensor, y: torch.Tensor,
     if x_valid is not None:
         nearest = torch.where(x_valid, nearest, torch.zeros_like(nearest))
     return torch.sum(nearest)
+
+
+@torch.no_grad()
+def farthest_point_sampling(points: torch.Tensor, k: int,
+                            valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Iterative farthest point sampling -> (k,) int32 indices. Starts from
+    the first valid index; each round takes the argmax of the running
+    minimum squared distance to the chosen set, invalid slots at -inf, the
+    first index on ties (as `jnp.argmax` picks). Once every valid point is
+    chosen the running minimum is 0 everywhere and index 0 of the valid
+    set repeats, as in the reference. No host read inside the loop."""
+    n = points.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=points.device)
+    neg = torch.full((n,), -torch.inf, dtype=points.dtype,
+                     device=points.device)
+    idxs = torch.zeros((k,), dtype=torch.int64, device=points.device)
+    idxs[0] = torch.argmax(valid.to(torch.int8))
+    min_d2 = torch.full((n,), torch.inf, dtype=points.dtype,
+                        device=points.device)
+    for i in range(1, k):
+        d2 = torch.sum((points - points[idxs[i - 1]]) ** 2, dim=-1)
+        min_d2 = torch.minimum(min_d2, d2)
+        idxs[i] = torch.argmax(torch.where(valid, min_d2, neg))
+    return idxs.to(torch.int32)

@@ -1,1 +1,2 @@
-from dimo_tpu_torch.ops.rasterizer.api import RenderOutput, rasterize  # noqa: F401
+from dimo_tpu_torch.ops.rasterizer.api import (  # noqa: F401
+    RenderOutput, rasterize, rasterize_dense)

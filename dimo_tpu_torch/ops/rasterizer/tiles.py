@@ -1,8 +1,8 @@
 """Per-bin Gaussian list construction (plain tensor ops).
 
 Counterpart of `dimo_tpu/ops/rasterizer/tiles.py::build_bin_lists` with the
-reference's default knobs hard-coded (TIER2=5 medium tier, window readout
-by gather). The formulation is the same duplicate-key sort:
+reference's TIER2=5 medium tier hard-coded and both of its window
+readout routes. The formulation is the same duplicate-key sort:
 
   * each "small" gaussian (bbox within a KR x KC bin footprint) emits one
     (bin || quantized-depth, index) int32 key pair per overlapped bin
@@ -15,6 +15,14 @@ by gather). The formulation is the same duplicate-key sort:
   * segments are located with searchsorted and read out as one window of
     `capacity` rows per bin, so truncation keeps each bin's NEAREST
     `capacity` entries, and `overflow`/`overflow_max` count what was cut.
+
+Readout routes. By default the window is read with two clamped gathers
+(keys and values at `starts[t] + j`). With `WINDMA` set (environment
+`DIMO_WINDMA`, the reference's knob and default) the sorted keys and
+values are stacked into (ND, 2) pairs and read by
+`windowdma.gather_windows`: kernel K7 on the card, its plain version on
+the CPU. The validity mask and everything after it are shared, so both
+routes give identical lists.
 
 Ties. `lax.sort` in the reference is not stable, and quantized depths can
 collide; here every sort is `stable=True`, so equal keys keep the order
@@ -31,9 +39,12 @@ host sync per branch per render.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
+
+from dimo_tpu_torch.ops.rasterizer import windowdma
 
 # duplication footprint of the small path (strips.py passes DUP for both)
 DUP_KR = 2
@@ -41,6 +52,9 @@ DUP_KC = 2
 # compacted medium tier: footprints up to TIER2 x TIER2 bins, TIER2_K slots
 TIER2 = 5
 TIER2_K = 2048
+# window readout route: nonzero reads each bin's window through
+# windowdma.gather_windows (kernel K7) instead of two clamped gathers
+WINDMA = int(os.environ.get("DIMO_WINDMA", "0"))
 # depth bits in the int32 sort key: (bin id << depth_bits) | quantized depth
 DEPTH_BITS_MAX = 22
 DEPTH_BITS_MIN = 16
@@ -162,9 +176,15 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
     seg_len = ends - starts
     offs = starts[:, None] + torch.arange(capacity, dtype=i32, device=dev)[None]
     inc = offs < ends[:, None]                                          # (T,C)
-    rows = offs.clamp_max(nd - 1).long()
-    small_dq = torch.where(inc, skey[rows] & depth_max, depth_max + 1)
-    small_idx = torch.where(inc, sval[rows], n)
+    if WINDMA:
+        pairs = torch.stack([skey, sval], dim=1)                        # (ND,2)
+        rows = windowdma.gather_windows(pairs, starts, capacity)        # (T,C,2)
+        wkey, wval = rows[..., 0], rows[..., 1]
+    else:
+        at = offs.clamp_max(nd - 1).long()
+        wkey, wval = skey[at], sval[at]
+    small_dq = torch.where(inc, wkey & depth_max, depth_max + 1)
+    small_idx = torch.where(inc, wval, n)
 
     # --- big path, only when a big gaussian exists (host read of n_big
     # stands for the reference's lax.cond)

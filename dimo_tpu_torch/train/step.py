@@ -1,8 +1,8 @@
 """One training step: renders, loss assembly, backward, per-group Adam.
 
-Counterpart of `dimo_tpu/train/step.py` at stage s2. The reference jits
-the whole step and maps the renders sequentially (`lax.map`); here the
-renders run in a Python loop in the same motion-major order, autograd
+Counterpart of `dimo_tpu/train/step.py`, stages s1 and s2. The reference
+jits the whole step and maps the renders sequentially (`lax.map`); here
+the renders run in a Python loop in the same motion-major order, autograd
 records them, and one `backward` runs the compositor and LBS-gather
 backward kernels (K3, K4) for every render.
 
@@ -10,23 +10,34 @@ Loss (the reference's `loss_fn`, same weights and gates):
   * per-image weighted MSE, per-motion SSIM and mask MSE, KL when `vae`;
   * edge-aware depth and bilateral normal smoothness, gated by
     step > depth/normal_reg_start_iter;
-  * ARAP on the control points over `arap_t_samples` TimeNet times,
-    gated by step < arap_end_iter_s2;
+  * ARAP over `arap_t_samples` TimeNet times: in s2 on the control
+    points, gated by step < arap_end_iter_s2; in s1 on the Gaussians
+    themselves (they are the control points), gated by
+    step > arap_start_iter_s1;
   * chamfer guidance of the deformed control points to the batch's
-    stage-1 trajectories (`use_guidance`).
+    stage-1 trajectories (`use_guidance`, s2).
 Then the non-finite guard (every gradient finite and sup|g| < 1e17,
 taken before the optional global-norm clip, as in the reference), and
 Adam on `where(grads_ok, new, old)`; a skipped step leaves parameters,
 moments and the Adam step count as they were.
 
+Stage s1 skips the KNN (no skinning) and gathers the densification
+statistics: the last render of the batch carries a `mean2d_tap`, and its
+gradient, radii and visibility go into `xyz_grad_accum`, `denom` and
+`max_radii2d` when step % fps_iter >= density_start_iter and
+step <= density_end_iter. As in the reference, a step skipped by the
+non-finite guard still accumulates them.
+
 Batch (B = n_motions * n_views * n_frames, motion-major, then view, then
 frame): "camera" a list of B `utils.cameras.Camera`; "times" (B,) and
-"latent_idx" (B,) on the host; "mse_w" (B,); "gt_image" (B, H, W, 3) and
-"gt_mask" (B, H, W) uint8 at the render size; "guidance" (B, M, 3).
+"latent_idx" (B,) on the host; "mse_w" (B,); "gt_image" (B, S, S', 3) and
+"gt_mask" (B, S, S') uint8; "guidance" (B, M, 3). A GT of another size
+than the render is resized on the device as `jax.image.resize(...,
+"linear")` does it: half-pixel centres, and a triangle filter widened by
+the scale when it shrinks (`F.interpolate` with `antialias=True`,
+measured within 3e-7 of the reference). Same-size GT is used as it is.
 
-Not yet here (they wait for the trainer slice): stage s1 (its
-`mean2d_tap` gradient and densification statistics), resizing the GT to
-the render size, LPIPS, test-time latent fine-tuning (`trainable_groups`).
+Not yet here: LPIPS, test-time latent fine-tuning (`trainable_groups`).
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from dimo_tpu_torch.models import gaussians as G
 from dimo_tpu_torch.models.renderer import find_knn, render
@@ -150,6 +162,13 @@ def group_lrs(lcfg: LossConfig, step: int, stage: str) -> dict:
     return {k: f(v) for k, v in lrs.items()}
 
 
+def resize_linear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, C, h, w) -> (B, C, height, width) as `jax.image.resize(...,
+    "linear")`: half-pixel centres, antialiased where it shrinks."""
+    return F.interpolate(x, size=(height, width), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
 def make_train_step(
     cfg: G.ModelConfig,
     lcfg: LossConfig,
@@ -168,10 +187,8 @@ def make_train_step(
     replaces the times drawn from `state.rng`; `mark(name)`, if given, is
     called after the renders, the losses, the backward and the update
     (e.g. to record CUDA events). `train_step.loss_fn` is the loss alone."""
-    if stage != "s2":
-        raise NotImplementedError(
-            "stage s1 (mean2d_tap, densification statistics) comes with the "
-            "trainer")
+    if stage not in ("s1", "s2"):
+        raise ValueError(f"stage must be 's1' or 's2', got {stage!r}")
     B = n_motions * n_views * n_frames
     per = n_views * n_frames
 
@@ -179,16 +196,19 @@ def make_train_step(
         return x.reshape(n_motions, per, *x.shape[1:])
 
     def loss_fn(params, aux, batch, step: int, arap_times=None,
-                generator: torch.Generator | None = None, mark=None):
+                generator: torch.Generator | None = None, mark=None,
+                tap: torch.Tensor | None = None):
+        """tap: the `mean2d_tap` (N, 2) of the LAST render of the batch."""
         dev = params.xyz.device
         bg = torch.ones(3, device=dev)
-        knn_cache = find_knn(params, aux)
+        knn_cache = find_knn(params, aux) if stage >= "s2" else None
         times = torch.as_tensor(batch["times"]).tolist()
         lidx = [int(i) for i in torch.as_tensor(batch["latent_idx"]).tolist()]
         vae_rng = generator if lcfg.vae else None
         outs = [render(cfg, params, aux, batch["camera"][b], times[b], stage,
                        lidx[b], width, height, bg, rng=vae_rng,
-                       knn_cache=knn_cache, capacity=capacity)
+                       knn_cache=knn_cache, capacity=capacity,
+                       mean2d_tap=tap if b == B - 1 else None)
                 for b in range(B)]
         if mark is not None:
             mark("renders")
@@ -198,13 +218,12 @@ def make_train_step(
 
         gt_img = torch.as_tensor(batch["gt_image"], device=dev)
         gt_msk = torch.as_tensor(batch["gt_mask"], device=dev)
-        if tuple(gt_img.shape[1:3]) != (height, width) \
-                or tuple(gt_msk.shape[1:3]) != (height, width):
-            raise ValueError(
-                f"GT must arrive at the render size {(height, width)}, got "
-                f"{tuple(gt_img.shape)} / {tuple(gt_msk.shape)}")
         gt = (gt_img.to(torch.float32) / 255.0).permute(0, 3, 1, 2)
+        if tuple(gt.shape[2:]) != (height, width):
+            gt = resize_linear(gt, height, width)
         gt_m = (gt_msk.to(torch.float32) / 255.0)[:, None]
+        if tuple(gt_m.shape[2:]) != (height, width):
+            gt_m = resize_linear(gt_m, height, width)
 
         per_img_mse = torch.mean((imgs - gt) ** 2, dim=(1, 2, 3))   # (B,)
         mse_w = torch.as_tensor(batch["mse_w"], dtype=torch.float32,
@@ -248,8 +267,12 @@ def make_train_step(
 
         arap_l = torch.zeros((), device=dev)
         if lcfg.use_arap:
-            gate = float(step < lcfg.arap_end_iter_s2)
-            base = params.c_xyz
+            if stage == "s1":
+                gate = float(step > lcfg.arap_start_iter_s1)
+                base, node_valid = params.xyz, aux.active
+            else:
+                gate = float(step < lcfg.arap_end_iter_s2)
+                base, node_valid = params.c_xyz, aux.c_active
             if arap_times is None:
                 arap_times = torch.rand((lcfg.arap_t_samples,),
                                         generator=generator)
@@ -260,12 +283,12 @@ def make_train_step(
                 lat = G.sample_latent(params, li, None)
                 d_xyz_t, _ = params.timenet(pts, q, lat)       # (T, M, 3)
                 arap_l = arap_l + arap_mod.arap_loss(
-                    base, d_xyz_t, valid=aux.c_active,
+                    base, d_xyz_t, valid=node_valid,
                     radius=lcfg.arap_radius, generator=generator)
             loss = loss + gate * lcfg.lambda_arap * arap_l
 
         ga_l = torch.zeros((), device=dev)
-        if use_guidance and lcfg.add_ga:
+        if use_guidance and stage >= "s2" and lcfg.add_ga:
             c_valid = aux.c_active
             guid = torch.as_tensor(batch["guidance"], device=dev).detach()
             for o, g in zip(outs, guid):
@@ -291,7 +314,9 @@ def make_train_step(
             "overflow_max": torch.max(stack("overflow_max")),
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
-        vis_aux = {"debug_render": imgs[0].detach(), "debug_gt": gt[0]}
+        vis_aux = {"radii": outs[-1]["radii"].detach(),
+                   "visibility": outs[-1]["visibility_filter"],
+                   "debug_render": imgs[0].detach(), "debug_gt": gt[0]}
         if mark is not None:
             mark("losses")
         return loss, (metrics, vis_aux)
@@ -302,8 +327,14 @@ def make_train_step(
         leaves = optim.named_leaves(state.params)
         for leaf in leaves.values():
             leaf.grad = None
+        tap = None
+        if stage == "s1":
+            tap = torch.zeros((state.params.xyz.shape[0], 2),
+                              device=state.params.xyz.device,
+                              requires_grad=True)
         loss, (metrics, vis_aux) = loss_fn(state.params, state.aux, batch,
-                                           step, arap_times, state.rng, mark)
+                                           step, arap_times, state.rng, mark,
+                                           tap)
         loss.backward()
         if mark is not None:
             mark("backward")
@@ -338,6 +369,18 @@ def make_train_step(
                 step=torch.where(grads_ok, new_opt.step, old.step))
             for leaf in leaves.values():
                 leaf.grad = None
+            # densification statistics from the LAST render of the batch,
+            # inside the window the densifier reads them in; not gated by
+            # grads_ok (the reference's behaviour)
+            if stage == "s1" and (
+                    step % lcfg.fps_iter >= lcfg.density_start_iter
+                    and step <= lcfg.density_end_iter):
+                gtap = tap.grad if tap.grad is not None \
+                    else torch.zeros_like(tap)
+                upd = G.update_max_radii(state.aux, vis_aux["radii"],
+                                         vis_aux["visibility"])
+                state.aux = G.add_densification_stats(
+                    upd, gtap, vis_aux["visibility"])
         state.step = step
         if mark is not None:
             mark("adam")

@@ -200,12 +200,64 @@ def _imports(path):
             yield node.args[0].value
 
 
-def test_port_imports_neither_jax_nor_dimo_tpu():
+def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "dimo_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_imports_neither_jax_nor_dimo_tpu():
+    files = _port_files()
     assert len(files) > 20
+    # the scan reaches every module of the port, the newest included
+    rel = {os.path.relpath(f, os.path.join(REPO, "dimo_tpu_torch"))
+           for f in files}
+    for name in ("train/loop.py", "train/step.py", "io/checkpoint.py",
+                 "io/config.py", "io/ply.py", "io/synthetic.py", "presets.py",
+                 "ops/rasterizer/windowdma.py", "ops/rasterizer/oracle.py",
+                 "ops/neighbors.py", "models/gaussians.py"):
+        assert name.replace("/", os.sep) in rel, name
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "dimo_tpu"), (path, mod)
+
+
+def test_port_needs_no_optional_package_at_import():
+    """PyYAML, OpenCV and tensorboardX may be missing on the machine with
+    the card: no module of the port (nor `chip_smoke.py`) imports them at
+    module level, so importing the trainer never needs them."""
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in tree.body:
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                    else [])
+            for mod in mods:
+                assert mod.split(".")[0] not in ("yaml", "cv2", "tensorboardX",
+                                                 "triton"), (path, mod)
+
+
+def test_config_and_preset_are_the_reference_ones(tmp_path):
+    """The port's copies of `io/config.py` and `presets.py`: the same keys
+    and values, attribute access, dotlist overrides with YAML typing."""
+    from dimo_tpu.io import config as jcfg
+    from dimo_tpu.presets import tiny_synthetic_opt as j_tiny
+    from dimo_tpu_torch.io import config as tcfg
+    from dimo_tpu_torch.presets import tiny_synthetic_opt as t_tiny
+    j, t = j_tiny(num_cpts=7), t_tiny(num_cpts=7)
+    paths = ("save_path", "video_save_dir")       # under the temp directory
+    assert {k: v for k, v in t.items() if k not in paths} == \
+        {k: v for k, v in j.items() if k not in paths}
+    assert t.num_cpts == 7 and t.get("missing", 3) == 3
+    with pytest.raises(AttributeError):
+        t.missing
+    yaml_path = os.path.join(REPO, "configs", "train_config.yaml")
+    dots = ["batch_size=2", "nested.key=[1, 2]", "--save_path=out", "flag="]
+    a, b = tcfg.load_config(yaml_path, dots), jcfg.load_config(yaml_path, dots)
+    assert dict(a) == dict(b) and a.nested.key == [1, 2] and a.flag is None
+    tcfg.save_config(a, str(tmp_path / "c.yaml"))
+    assert dict(tcfg.load_yaml(str(tmp_path / "c.yaml"))) == dict(a)
+    with pytest.raises(ValueError, match="key=value"):
+        tcfg.apply_dotlist(a, ["oops"])

@@ -256,9 +256,11 @@ def test_guard_skips_a_nonfinite_step(run):
         assert torch.equal(v, before[k]) or (k == "features_dc"), k
     assert all(torch.equal(state.opt.mu[k], mu0[k]) for k in mu0)
     assert int(state.opt.step) == count0
-    bad = dict(batch, gt_image=batch["gt_image"][:, :16])
-    with pytest.raises(ValueError, match="render size"):
-        tfn.loss_fn(state.params, state.aux, bad, 1)
+    # a GT of another size than the render is resized, not refused
+    half = dict(batch, gt_image=batch["gt_image"][:, :16, :64],
+                gt_mask=batch["gt_mask"][:, :16, :64])
+    loss, _ = tfn.loss_fn(state.params, state.aux, half, 1)
+    assert loss.shape == ()
 
 
 def test_vae_kl_and_l1_guidance_terms():

@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels (K1 strip compositor and K3 its
-   backward, K2 LBS column gather and K4 its backward, K7 the binning's
-   window readout) from `dimo_tpu_torch/csrc/` with nvcc, all at once.
+   backward, K2 LBS column gather and K4 its backward, K5 the row-layout
+   gather and K6 its backward, K7 the binning's window readout, K8 tile
+   compositor and K9 its backward) from `dimo_tpu_torch/csrc/` with nvcc,
+   one process per source, all started at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship render gives it: K2 bit-exact; K1 7-channel at
    atol 1e-5; K1 3-channel early exit against the plain exhaustive
@@ -16,7 +18,12 @@
    K7 bit-exact, at the flagship's sorted pairs and window starts
    (capacity 1024) and at capacity 64 with windows that overrun the
    array end, and the flagship's strip lists by both readout routes
-   (`tiles.WINDMA` off and on) equal in all four outputs.
+   (`tiles.WINDMA` off and on) equal in all four outputs; K5 bit-exact
+   and K6 at 1e-5 of each entry's sum of |g|, at the LBS shape ((512, 11)
+   table, 400,000 sites) and on a (100000, 16) table; K8
+   7-channel at 1e-5 (reported bit-exact or not) and 3-channel equal to the
+   7-channel's first planes, K9 per slab slot at 1e-4 of each column's max
+   |grad|, on the flagship's tile lists (64 tiles, capacity 1024).
 3. Checks a small render on the card against the same render on the CPU
    (plain versions): 1e-4, except the rare pixel where one entry sits on
    the 1/255 alpha cut. Then a small train step (2,048 Gaussians, 32
@@ -25,6 +32,8 @@
    And a small stage-1 step (512 Gaussians in a capacity of 1,024, 2 x 1
    x 2 renders at 256^2 from a 512^2 ground truth, so the resize runs):
    loss, gradients, the `mean2d_tap` gradient, `denom`, `max_radii2d`.
+   And a small tile-path render (2,048 Gaussians of ~5 px, 256^2) with the
+   gradient of a weighted sum of its four outputs, card vs CPU.
 4. Drives the serving path through the port's entry points at full
    width, under torch.no_grad(): the flagship stage-2 scene (100k
    Gaussians, 512 control points, latent 32), KNN once, a 21-frame
@@ -58,8 +67,28 @@
    launch counter is zeroed just before and read just after: K7 and K1
    ch7 and K3 must equal the phase's render count, K2 and K4 its stage-2
    render count.
-8. Prints a `kernels` JSON line, the card's name and power limit, and
-   last the device line.
+8. Drives the tile-compositor path at full width (the flagship scene,
+   100k Gaussians, 512 control points, 512^2, capacity 1024 per tile,
+   nothing cut): latent -> TimeNet -> LBS (K2) -> project ->
+   build_tile_lists -> pack_attrs -> gather_rows -> composite (K8), the
+   image composed, and a backward of a weighted sum of image, alpha, depth
+   and normal to every parameter (K9, gather_rows' segment sum, K4), three
+   frames; the same frames through `composite_infer` (3 channels); the
+   row-layout gather (K5) and its backward (K6) through autograd at the
+   path's own LBS table, held against the column layout. Counters zeroed
+   just before, read just after: K8 ch7 = K9 = K8 ch3 = K4 = K5 = K6 = 3,
+   K2 = 6, no strip kernel. Prints the share of tile entries the capacity
+   drops and the first frame's difference from capacity 4096. Then the
+   cross-check of the two compositor
+   families on the flagship scene built with 25,000 Gaussians at capacity
+   4096 (no list overflows; Gaussians whose depths tie are deactivated,
+   since the two bin geometries break ties differently): tile path (K8/K9)
+   vs strip path (K1/K3) within 1e-4 on 99% of the pixels of image, alpha,
+   depth and normal and within one alpha-cut flip on the rest, and within
+   1e-3 relative L2 in every parameter's gradient.
+9. Prints a `kernels` JSON line (all nine kernels, K1 and K8 in both
+   channel variants), the card's name and power limit, and last the device
+   line.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -84,6 +113,16 @@ K1_OPS_BASE = 21
 # 2, T 1, w 1, CG 13, dalpha 3, suffix 2, gate 2, dpower 3, the ten
 # per-pixel terms 9, and one add per term into the strip's sums 10
 K3_OPS = 65
+# K8 float32 ops per (pixel, slab entry): quadratic 10, exp 1, cut/cap 2,
+# w 1, T 1, and 2 per composited channel
+K8_OPS_BASE = 15
+# K9 float32 ops per (pixel, slab entry): alpha replay 13, 1/(1-a) and T 3,
+# w 1, CG 13, dalpha 3, GS 2, gate 2, dpower 2, dx and the ten per-pixel
+# terms 10, and one add per term into the tile's sums 10
+K9_OPS = 59
+TILE_ITERS = 3                 # tile-path renders with a backward (phase 8)
+CROSS_GAUSSIANS = 25_000       # the two-compositor cross-check's scene
+CROSS_CAPACITY = 4096          # ... and its capacity: no list overflows
 SEQ_FRAMES = 21
 FPS_ROUNDS = 20
 WIDTH = HEIGHT = 512
@@ -182,7 +221,6 @@ def small_train_grads(device) -> tuple:
     import numpy as np
     import torch
     from dimo_tpu_torch.scenes import flagship_scene
-    from dimo_tpu_torch.train import optim
     from dimo_tpu_torch.train.step import LossConfig, init_state, make_train_step
     cfg, params, aux, _ = flagship_scene(2048, 32, 8, seed=3, device=device)
     gen = torch.Generator().manual_seed(5)
@@ -196,9 +234,7 @@ def small_train_grads(device) -> tuple:
     loss, _ = fn.loss_fn(state.params, state.aux, batch, TRAIN_START,
                          arap_times=np.linspace(0.05, 0.95, 8))
     loss.backward()
-    return float(loss.detach()), {k: v.grad.detach().cpu() if v.grad is not None
-                         else torch.zeros_like(v).cpu()
-                         for k, v in optim.named_leaves(params).items()}
+    return float(loss.detach()), leaf_grads(params)
 
 
 def rel_l2(got, ref) -> float:
@@ -218,7 +254,6 @@ def small_s1_step(device) -> dict:
     import numpy as np
     import torch
     from dimo_tpu_torch.models import gaussians as G
-    from dimo_tpu_torch.train import optim
     from dimo_tpu_torch.train.step import LossConfig, init_state, make_train_step
     cfg = G.ModelConfig(latent_dim=8, num_latents=2, capacity=1024,
                         cpt_capacity=64)
@@ -238,9 +273,7 @@ def small_s1_step(device) -> dict:
     loss, _ = fn.loss_fn(state.params, state.aux, batch, 150, arap_times=times,
                          generator=state.rng, tap=tap)
     loss.backward()
-    grads = {k: (v.grad.detach().cpu() if v.grad is not None
-                 else torch.zeros_like(v).cpu())
-             for k, v in optim.named_leaves(params).items()}
+    grads = leaf_grads(params)
     grads["mean2d_tap"] = tap.grad.detach().cpu()
     state.rng.manual_seed(8)
     state, metrics = fn(state, batch, arap_times=times)
@@ -248,6 +281,541 @@ def small_s1_step(device) -> dict:
             "skipped": int(metrics["nonfinite_grad"]),
             "aux": {f: getattr(state.aux, f).cpu() for f in
                     ("denom", "max_radii2d", "xyz_grad_accum")}}
+
+
+def rows_gather_phase(dev, table_t, nn_idx) -> dict:
+    """Phase 2f: K5 and K6 against their plain versions at the LBS shape
+    (the (M, 11) table K2 reads, transposed, at the flagship's (4, N) KNN
+    indices), timed beside the library calls; then a (100000, 16) table,
+    untimed."""
+    import torch
+    from dimo_tpu_torch.ops import smallgather as sg
+    table = table_t.T.contiguous()                       # (M, 11)
+    m, d = table.shape
+    flat = nn_idx.reshape(-1).long()
+    s_sites = flat.shape[0]
+    got = sg.gather_small(table, nn_idx)
+    ref = sg.gather_small_plain(table, nn_idx)
+    torch.cuda.synchronize()
+    k5_err = float((got - ref).abs().max())
+    if got.shape != (*nn_idx.shape, d) or not torch.equal(got, ref):
+        fail(f"K5 disagrees with its plain version: max |err| {k5_err}")
+    g6 = torch.randn((*nn_idx.shape, d),
+                     generator=torch.Generator().manual_seed(14)).to(dev)
+    got = sg.gather_small_bwd(g6, nn_idx, m)
+    ref = sg.gather_small_bwd_plain(g6, nn_idx, m)
+    mass = sg.gather_small_bwd_plain(g6.abs(), nn_idx, m)
+    torch.cuda.synchronize()
+    k6_err = float((got - ref).abs().max())
+    if not torch.isfinite(got).all() or bool(((got - ref).abs()
+                                              > 1e-5 * mass + 1e-30).any()):
+        fail(f"K6 disagrees with its plain version: max |err| {k6_err} "
+             f"(tol 1e-5 of each entry's sum of |g|)")
+    g6_flat = g6.reshape(-1, d)
+    k5_ms = cuda_ms(lambda: sg.gather_small(table, nn_idx), 200)
+    k6_ms = cuda_ms(lambda: sg.gather_small_bwd(g6, nn_idx, m), 200)
+    k5_plain = cuda_ms(lambda: sg.gather_small_plain(table, nn_idx), 50)
+    k6_plain = cuda_ms(lambda: sg.gather_small_bwd_plain(g6, nn_idx, m), 5)
+    k5_lib = cuda_ms(lambda: torch.index_select(table, 0, flat), 200)
+    k6_lib = cuda_ms(lambda: torch.zeros((m, d), device=dev).index_add_(
+        0, flat, g6_flat), 200)
+    print(f"K5 gather_small ({m}, {d}) x {tuple(nn_idx.shape)}: bit-exact vs "
+          f"plain; {k5_ms:.4f} ms (plain {k5_plain:.4f}, index_select "
+          f"{k5_lib:.4f})")
+    print(f"K6 gather_small bwd ({s_sites}, {d}) -> ({m}, {d}): max |err| "
+          f"{k6_err:.3g}; {k6_ms:.4f} ms (plain {k6_plain:.4f}, index_add_ "
+          f"{k6_lib:.4f})")
+    # a large table, some indices out of range
+    gen = torch.Generator().manual_seed(15)
+    big = torch.randn((100_000, 16), generator=gen).to(dev)
+    bidx = torch.randint(-3, 100_003, (200_000,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    bg_ = torch.randn((200_000, 16), generator=gen).to(dev)
+    got = sg.gather_small(big, bidx)
+    if not torch.equal(got, sg.gather_small_plain(big, bidx)):
+        fail("K5 disagrees with its plain version on a (100000, 16) table")
+    got = sg.gather_small_bwd(bg_, bidx, 100_000)
+    ref = sg.gather_small_bwd_plain(bg_, bidx, 100_000)
+    mass = sg.gather_small_bwd_plain(bg_.abs(), bidx, 100_000)
+    torch.cuda.synchronize()
+    big_err = float((got - ref).abs().max())
+    if bool(((got - ref).abs() > 1e-5 * mass + 1e-30).any()):
+        fail(f"K6 disagrees with its plain version on a (100000, 16) table: "
+             f"max |err| {big_err}")
+    print(f"K5/K6 on a (100000, 16) table, 200000 sites "
+          f"({int(((bidx < 0) | (bidx >= 100_000)).sum())} out of range): K5 "
+          f"bit-exact, K6 max |err| {big_err:.3g}")
+    nbytes = s_sites * 4 + m * d * 4 + s_sites * d * 4
+    return {"k5": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, lib_ms=k5_lib,
+                       bytes=nbytes),
+            "k6": dict(err=k6_err, ms=k6_ms, plain_ms=k6_plain, lib_ms=k6_lib,
+                       bytes=nbytes)}
+
+
+def tile_kernels_phase(dev, p, opacity) -> dict:
+    """Phase 2g: K8 and K9 against their plain versions on the flagship's
+    tile lists (512^2, capacity 1024: slabs of (64, 1024, 16)), timed."""
+    import torch
+    from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
+    from dimo_tpu_torch.ops.rasterizer import tiles
+    from dimo_tpu_torch.ops.rasterizer.tile_path import tile_slabs
+    with torch.no_grad():
+        packed, tl = tile_slabs(p, opacity, WIDTH, HEIGHT, CAPACITY)
+    nrows, ncols = tiles.num_tiles(HEIGHT, WIDTH)
+    counts = tl.count.reshape(nrows, ncols).contiguous()
+    cn = tl.count.float()
+    entries = int(tl.count.sum())
+    print(f"tile lists {nrows} x {ncols}, capacity {CAPACITY}: counts min "
+          f"{int(cn.min())} max {int(cn.max())} mean {float(cn.mean()):.0f} "
+          f"sum {entries}; overflow {int(tl.overflow)} (worst tile "
+          f"{int(tl.overflow_max)})")
+    out7, tfin = ct.composite(packed, counts, HEIGHT, WIDTH)
+    ref7, ref_t = ct.composite_tiles_plain(packed, counts, HEIGHT, WIDTH)
+    out3, tfin3 = ct.composite_infer(packed, counts, HEIGHT, WIDTH, 3)
+    torch.cuda.synchronize()
+    # tolerance 1e-5: kernel and plain version round every op alike
+    # (--fmad=false, the same order), so they are expected equal; 1e-5
+    # allows one last-place difference of expf/logf between the two
+    # builds of the math library
+    err7 = max(float((out7 - ref7).abs().max()),
+               float((tfin - ref_t).abs().max()))
+    exact7 = torch.equal(out7, ref7) and torch.equal(tfin, ref_t)
+    if not torch.isfinite(out7).all() or err7 > 1e-5:
+        fail(f"K8 ch7 disagrees with its plain version: max |err| {err7}")
+    if not (torch.equal(out3, out7[:3]) and torch.equal(tfin3, tfin)):
+        fail("K8 ch3 differs from the first planes of K8 ch7")
+    err3 = float((out3 - ref7[:3]).abs().max())
+    res = {"entries": entries}
+    for ch in (7, 3):
+        fn = ((lambda: ct.composite(packed, counts, HEIGHT, WIDTH)) if ch == 7
+              else (lambda: ct.composite_infer(packed, counts, HEIGHT, WIDTH, 3)))
+        res[ch] = dict(
+            err=err7 if ch == 7 else err3, ms=cuda_ms(fn, 50),
+            plain_ms=cuda_ms(lambda: ct.composite_tiles_plain(
+                packed, counts, HEIGHT, WIDTH, ch), 2, warmup=1),
+            ops=entries * tiles.TILE_H * tiles.TILE_W * (K8_OPS_BASE + 2 * ch),
+            bytes=(entries * 64 + counts.numel() * 4
+                   + (ch + 1) * HEIGHT * WIDTH * 4))
+        print(f"K8 composite_tiles ch{ch}: "
+              + (f"{'bit-exact' if exact7 else 'not bit-exact'} vs plain, max "
+                 f"|err| {err7:.3g} (tol 1e-5)" if ch == 7 else
+                 f"equal to the first planes of ch7 (max |err| vs plain "
+                 f"{err3:.3g})")
+              + f"; {res[ch]['ms']:.4f} ms (plain {res[ch]['plain_ms']:.2f}); "
+              f"{entries} entries")
+    gout = torch.randn((8, HEIGHT, WIDTH),
+                       generator=torch.Generator().manual_seed(13)).to(dev)
+    got = ct.composite_tiles_bwd(packed, counts, tfin, gout)
+    ref = ct.composite_tiles_bwd_plain(packed, counts, tfin, gout)
+    torch.cuda.synchronize()
+    col_max = ref.abs().amax(dim=(0, 1))                   # (16,)
+    err = (got - ref).abs()
+    bad_slots = int((err > 1e-4 * col_max).any(dim=-1).sum())
+    k9_rel = float((err / col_max.clamp_min(1e-30)).max())
+    past = (torch.arange(CAPACITY, device=dev)[None, :] >= tl.count[:, None])
+    if not torch.isfinite(got).all() or bad_slots or bool(got[past].any()) \
+            or bool(got[..., 13:].any()):
+        fail(f"K9 disagrees with its plain version: {bad_slots} slab slots "
+             f"over 1e-4 of their column's max |grad| (worst {k9_rel:.3g})")
+    res["bwd"] = dict(
+        err=float(err.max()), rel=k9_rel,
+        ms=cuda_ms(lambda: ct.composite_tiles_bwd(packed, counts, tfin, gout),
+                   20),
+        plain_ms=cuda_ms(lambda: ct.composite_tiles_bwd_plain(
+            packed, counts, tfin, gout), 1, warmup=1),
+        ops=entries * tiles.TILE_H * tiles.TILE_W * K9_OPS,
+        bytes=(entries * 64 + counts.numel() * 4 + 9 * HEIGHT * WIDTH * 4
+               + packed.numel() * 4))
+    print(f"K9 composite_tiles bwd: {bad_slots} slots over tol; max |err| "
+          f"{res['bwd']['err']:.3g} ({k9_rel:.3g} of the column max); "
+          f"{res['bwd']['ms']:.4f} ms (plain {res['bwd']['plain_ms']:.2f}); "
+          f"{entries} entries")
+    return res
+
+
+def tile_loss(out, gen_seed: int = 17):
+    """A fixed weighted sum of a render's image, alpha, depth and normal
+    (weights in [0.5, 1.5] from a seed), so every plane carries gradient."""
+    import torch
+    gen = torch.Generator().manual_seed(gen_seed)
+    total = 0.0
+    for plane in (out["image"], out["alpha"], out["depth"], out["normal"]):
+        w = torch.rand(plane.shape, generator=gen) + 0.5
+        total = total + (plane * w.to(plane.device)).sum()
+    return total
+
+
+def tile_render(cfg, params, aux, cam, t, size, bg, knn, capacity,
+                channels=7) -> dict:
+    """`render_tiles` with the image clipped as `models.renderer.render`
+    clips it, as a dict of the four planes and the overflow."""
+    from dimo_tpu_torch.ops import grad_conventions as gc
+    from dimo_tpu_torch.ops.rasterizer.tile_path import render_tiles
+    out = render_tiles(cfg, params, aux, cam, t, 1, size, size, bg, knn,
+                       capacity=capacity, channels=channels)
+    return {"image": gc.clip(out.image, 0.0, 1.0), "alpha": out.alpha,
+            "depth": out.depth, "normal": out.normal,
+            "overflow": out.overflow}
+
+
+def leaf_grads(params) -> dict:
+    import torch
+    from dimo_tpu_torch.train import optim
+    return {k: (v.grad.detach().cpu().clone() if v.grad is not None
+                else torch.zeros_like(v).cpu())
+            for k, v in optim.named_leaves(params).items()}
+
+
+def trainable_scene(n_gauss, n_cpts, latent, seed, device, scale=1.0):
+    """A flagship-style scene with every leaf trainable and seeded TimeNet
+    heads, so that the deformation moves and every layer carries
+    gradient; plus its KNN. `scale` multiplies every Gaussian's extent."""
+    import math
+    import torch
+    from dimo_tpu_torch.models.renderer import find_knn
+    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.train import optim
+    cfg, params, aux, cam = flagship_scene(n_gauss, n_cpts, latent, seed=seed,
+                                           device=device)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for lin in (params.timenet.pts_1, params.timenet.rot_1):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * 0.02)
+        params.scaling.add_(math.log(scale))
+    for leaf in optim.named_leaves(params).values():
+        leaf.requires_grad_(True)
+    return cfg, params, aux, cam, find_knn(params, aux)
+
+
+def small_tile_render(device) -> tuple:
+    """Phase 3d: one small tile-path render (2,048 Gaussians, 32 control
+    points, latent 8, 256^2, capacity 1024) and the gradient of
+    `tile_loss` to every leaf. The Gaussians are five times the flagship's
+    size, ~5 px on screen: the tile compositor expands its quadratic in a
+    128-px frame, and at the flagship's ~1 px at 256^2 the float32 rounding
+    of that expansion (~1e-3 in power) is a function of the inputs' last
+    bits, which the card and the CPU do not share."""
+    import torch
+    cfg, params, aux, cam, knn = trainable_scene(2048, 32, 8, 3, device,
+                                                 scale=5.0)
+    out = tile_render(cfg, params, aux, cam, 0.35, 256,
+                      torch.ones(3, device=device), knn, 1024)
+    tile_loss(out).backward()
+    return ({k: v.detach().cpu() for k, v in out.items()}, leaf_grads(params))
+
+
+def compare_planes(a: dict, b: dict, tol: float, what: str,
+                   max_px_frac: float = 0.005) -> float:
+    """|a - b| <= tol * scale on all but `max_px_frac` of the pixels of each
+    plane, and within one alpha-cut flip (2/255 * scale) everywhere.
+    Returns the largest error."""
+    worst = 0.0
+    for key in ("image", "alpha", "depth", "normal"):
+        scale = max(1.0, float(b[key].abs().max()))
+        err = (a[key] - b[key]).abs()
+        bad = int((err > tol * scale).any(dim=0).sum())
+        if bad > max_px_frac * err[0].numel() \
+                or float(err.max()) > 2 / 255 * scale:
+            fail(f"{what} {key}: max |err| {float(err.max())}, {bad} px over "
+                 f"{tol}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def compare_grads(got: dict, ref: dict, tol: float, what: str,
+                  noise_floor: float = 0.0) -> tuple:
+    """Relative L2 of every leaf's gradient <= tol. With a `noise_floor`, a
+    leaf whose reference gradient is rounding noise (under that share of
+    the positions' gradient norm) must be noise in both and is not
+    compared. Returns the worst (leaf, relative L2)."""
+    import torch
+    noise = noise_floor * float(torch.linalg.norm(ref["xyz"]))
+    worst = ("", 0.0)
+    for k, r in ref.items():
+        if float(torch.linalg.norm(r)) < noise:
+            if float(torch.linalg.norm(got[k])) >= noise:
+                fail(f"{what}: gradient of {k} is noise on one side only")
+            print(f"{what}: gradient of {k} is rounding noise on both "
+                  f"sides, not compared")
+            continue
+        rel = rel_l2(got[k], r)
+        if not rel <= tol:
+            fail(f"{what}: gradient of {k} relative L2 {rel}")
+        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    return worst
+
+
+def drop_depth_ties(cfg, params, aux, cam, t, knn) -> tuple:
+    """Deactivate every Gaussian whose view depth lies within two steps of
+    the binning's 22-bit depth quantization of the Gaussian in front of it.
+    Both bin geometries sort a bin by quantized depth and break ties by
+    the order in which keys were emitted (footprint slot, then index),
+    which differs between 32 x 128 tiles and 32 x 32 strips; with ties
+    gone, the two lists hold every pixel's entries in the same order.
+    Returns (aux with the ties inactive, how many were dropped)."""
+    import torch
+    from dimo_tpu_torch.models import deform, gaussians as G
+    from dimo_tpu_torch.ops.rasterizer import projection, tiles
+    from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
+    with torch.no_grad():
+        lat = G.sample_latent(params, 1)
+        d_xyz, d_rot = params.timenet(params.c_xyz, t, lat)
+        m3, r3 = deform.lbs_blend(params.xyz, params.rotation, params.c_xyz,
+                                  d_xyz, d_rot, G.get_c_radius(params, "s2"),
+                                  knn[1], knn[0])
+        wv, fp, cp = camera_tensors(cam, m3.device)
+        pr = projection.project(
+            m3, G.get_scaling(params, "s2"), r3, G.get_opacity(params),
+            G.get_features(params), wv, fp, cp, float(cam.tan_fovx),
+            float(cam.tan_fovy), WIDTH, HEIGHT, valid=aux.active)
+        seen = pr.in_frustum & (pr.cull_radius > 0)
+        depth = torch.where(seen, pr.depth, torch.inf)
+        order = torch.argsort(depth)
+        d = depth[order]
+        span = float(d[seen.sum() - 1] - d[0])
+        step = 2.0 * span / (1 << tiles.DEPTH_BITS_MAX)
+        tied = torch.zeros_like(seen)
+        tied[order[1:]] = (d[1:] - d[:-1] < step) & torch.isfinite(d[1:])
+    return aux.replace(active=aux.active & ~tied), int(tied.sum())
+
+
+def cross_check(dev) -> tuple:
+    """The two compositor families against each other on one scene that
+    neither list overflows and in which no two depths tie: the tile path
+    (K8/K9) and the strip path (K1/K3) in image, alpha, depth and normal,
+    and in the gradient of `tile_loss` to every leaf. Returns
+    (max |err|, worst relative L2)."""
+    import torch
+    from dimo_tpu_torch.models.renderer import render
+    from dimo_tpu_torch.train import optim
+    t0 = time.time()
+    bg = torch.ones(3, device=dev)
+    cfg, params, aux, cam, knn = trainable_scene(CROSS_GAUSSIANS, 512, 32, 0,
+                                                 dev)
+    aux, n_tied = drop_depth_ties(cfg, params, aux, cam, 0.35, knn)
+    res = {}
+    for name in ("tiles", "strips"):
+        for leaf in optim.named_leaves(params).values():
+            leaf.grad = None
+        if name == "tiles":
+            out = tile_render(cfg, params, aux, cam, 0.35, WIDTH, bg, knn,
+                              CROSS_CAPACITY)
+        else:
+            out = render(cfg, params, aux, cam, 0.35, "s2", 1, WIDTH, HEIGHT,
+                         bg, knn_cache=knn, capacity=CROSS_CAPACITY)
+        if int(out["overflow"]) != 0:
+            fail(f"cross-check: the {name} lists overflow by "
+                 f"{int(out['overflow'])} at capacity {CROSS_CAPACITY}")
+        tile_loss(out).backward()
+        res[name] = ({k: out[k].detach() for k in ("image", "alpha", "depth",
+                                                   "normal")},
+                     leaf_grads(params))
+    if float(res["tiles"][0]["alpha"].max()) <= 0.5:
+        fail("cross-check: trivial alpha")
+    # 1% of the pixels may exceed 1e-4: the tile compositor expands its
+    # quadratic in a 128-px-wide local frame, so at this scene's ~2 px
+    # Gaussians (conics ~0.2) the terms reach ~1.6e3 and their float32
+    # rounding ~2e-4 in power, four times the strips' 32-px frame
+    x_err = compare_planes(res["tiles"][0], res["strips"][0], 1e-4,
+                           "tile path vs strip path", max_px_frac=0.01)
+    x_worst = compare_grads(res["tiles"][1], res["strips"][1], 1e-3,
+                            "tile path (K9) vs strip path (K3)",
+                            noise_floor=1e-6)
+    print(f"cross-check, the flagship scene built with {CROSS_GAUSSIANS} "
+          f"Gaussians ({n_tied} deactivated: depth within two quantization "
+          f"steps of the one in front) at capacity {CROSS_CAPACITY} (overflow "
+          f"0 in both lists): tile path (K8/K9) vs strip path (K1/K3) max "
+          f"|err| {x_err:.3g} over image, alpha, depth, normal; worst "
+          f"parameter gradient {x_worst[0]} relative L2 {x_worst[1]:.3g} "
+          f"({time.time() - t0:.1f} s)")
+    return x_err, x_worst[1]
+
+
+def tile_path_phase(dev) -> dict:
+    """Phase 8: the tile-compositor path at full width, forward and
+    backward, the same frames through `composite_infer`, the row-layout
+    gather at the path's own LBS table, and the cross-check of the two
+    compositor families. Returns launch counts and timings."""
+    import torch
+    from dimo_tpu_torch.models import gaussians as G
+    from dimo_tpu_torch.ops import smallgather as sg
+    from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
+    from dimo_tpu_torch.ops.rasterizer import projection, tiles
+    from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
+    from dimo_tpu_torch.models import deform
+    from dimo_tpu_torch.train import optim
+    t_phase = time.time()
+    cfg, params, aux, cam, knn = trainable_scene(100_000, 512, 32, 0, dev)
+    leaves = optim.named_leaves(params)
+    bg = torch.ones(3, device=dev)
+    times = [i / TILE_ITERS for i in range(TILE_ITERS)]
+
+    cs.launches = dict.fromkeys(cs.launches, 0)
+    ct.launches = dict.fromkeys(ct.launches, 0)
+    sg.launches = sg.bwd_launches = 0
+    sg.rows_launches = sg.rows_bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    images, overflow = [], 0
+    for i, t in enumerate(times):
+        for leaf in leaves.values():
+            leaf.grad = None
+        out = tile_render(cfg, params, aux, cam, t, WIDTH, bg, knn, CAPACITY)
+        for k in ("image", "alpha", "depth", "normal"):
+            if not torch.isfinite(out[k]).all():
+                fail(f"tile path frame {i}: {k} not finite")
+        if out["image"].shape != (3, HEIGHT, WIDTH):
+            fail(f"tile path frame {i}: image {tuple(out['image'].shape)}")
+        alpha = out["alpha"].detach()
+        if not (float(alpha.max()) > 0.5 and float(alpha.mean()) > 0.01):
+            fail(f"tile path frame {i}: trivial alpha (max "
+                 f"{float(alpha.max())}, mean {float(alpha.mean())})")
+        tile_loss(out).backward()
+        grads = leaf_grads(params)
+        for k, g in grads.items():
+            if not torch.isfinite(g).all():
+                fail(f"tile path frame {i}: gradient of {k} not finite")
+        dead = sorted(k for k in ("xyz", "scaling", "rotation", "opacity",
+                                  "features_dc", "c_xyz", "c_radius",
+                                  "latent.codes")
+                      if float(grads[k].abs().sum()) == 0)
+        if dead or not any(float(g.abs().sum()) > 0 for k, g in grads.items()
+                           if k.startswith("timenet.")):
+            fail(f"tile path frame {i}: no gradient reached {dead or 'TimeNet'}")
+        images.append(out["image"].detach())
+        overflow = int(out["overflow"])
+    torch.cuda.synchronize()
+    fb_ms = (time.time() - t0) / TILE_ITERS * 1e3
+    t0 = time.time()
+    with torch.no_grad():
+        for i, t in enumerate(times):
+            out3 = tile_render(cfg, params, aux, cam, t, WIDTH, bg, knn,
+                               CAPACITY, channels=3)
+            err = float((out3["image"] - images[i]).abs().max())
+            if not torch.isfinite(out3["image"]).all() or err > 1e-6 \
+                    or bool(out3["depth"].any()) or bool(out3["normal"].any()):
+                fail(f"tile path frame {i}: composite_infer's image differs "
+                     f"from the 7-channel one by {err}")
+    torch.cuda.synchronize()
+    infer_ms = (time.time() - t0) / TILE_ITERS * 1e3
+
+    # the row-layout gather at this path's LBS table: K5 against what K2
+    # reads, K6 against what K4 adds, through autograd
+    with torch.no_grad():
+        lat = G.sample_latent(params, 1)
+        d_xyz, d_rot = params.timenet(params.c_xyz, times[-1], lat)
+        rows = torch.cat([G.get_c_radius(params, "s2"), params.c_xyz, d_xyz,
+                          d_rot], dim=1).contiguous()          # (M, 11)
+    nn_idx = knn[1].contiguous()
+    w = torch.randn((*nn_idx.shape, rows.shape[1]),
+                    generator=torch.Generator().manual_seed(16)).to(dev)
+    for _ in range(TILE_ITERS):
+        tab = rows.clone().requires_grad_(True)
+        got = sg.gather_small(tab, nn_idx)
+        (got * w).sum().backward()
+    cols = sg.gather_small_cols_plain(rows.T.contiguous(), nn_idx)
+    ref_grad = sg.gather_small_cols_bwd_plain(w.permute(2, 0, 1).contiguous(),
+                                              nn_idx, rows.shape[0]).T
+    mass = sg.gather_small_cols_bwd_plain(
+        w.abs().permute(2, 0, 1).contiguous(), nn_idx, rows.shape[0]).T
+    torch.cuda.synchronize()
+    if not torch.equal(got.detach().permute(2, 0, 1), cols):
+        fail("gather_small differs from gather_small_cols transposed")
+    if bool(((tab.grad - ref_grad).abs() > 1e-5 * mass + 1e-30).any()):
+        fail("gather_small's table gradient differs from the column "
+             "layout's, transposed")
+
+    launch = {"K8 ch7": ct.launches["ch7"], "K8 ch3": ct.launches["ch3"],
+              "K9": ct.launches["bwd"], "K2": sg.launches,
+              "K4": sg.bwd_launches, "K5": sg.rows_launches,
+              "K6": sg.rows_bwd_launches}
+    want = {"K8 ch7": TILE_ITERS, "K8 ch3": TILE_ITERS, "K9": TILE_ITERS,
+            "K2": 2 * TILE_ITERS, "K4": TILE_ITERS, "K5": TILE_ITERS,
+            "K6": TILE_ITERS}
+    if launch != want or any(cs.launches.values()) or ct.launches["ch4"]:
+        fail(f"tile path launches {launch} (strip kernels {cs.launches}), "
+             f"expected {want} and no strip kernel")
+    print(f"tile path: {TILE_ITERS} renders with backward at {WIDTH}^2, "
+          f"{params.xyz.shape[0]} Gaussians, capacity {CAPACITY} (tile "
+          f"overflow {overflow}): {fb_ms:.1f} ms per forward + backward, "
+          f"{infer_ms:.1f} ms per 3-channel render (host clock, first "
+          f"iterations included); gather_small at the path's LBS table equal "
+          f"to the column layout's; launches {launch}")
+
+    # what capacity 1024 drops from this scene's tile lists, and what that
+    # does to the first frame: the same frame at capacity 4096 (outside the
+    # counted run)
+    with torch.no_grad():
+        full = tile_render(cfg, params, aux, cam, times[0], WIDTH, bg, knn,
+                           CROSS_CAPACITY, channels=3)
+    delta = (full["image"] - images[0]).abs()
+    cap_delta = {"max": float(delta.max()), "mean": float(delta.mean()),
+                 "px_over_1e-2": int((delta > 1e-2).any(dim=0).sum()),
+                 "overflow_at_4096": int(full["overflow"])}
+    if not torch.isfinite(full["image"]).all():
+        fail("tile path at capacity 4096: image not finite")
+
+    # per-stage CUDA events of the tile path (outside the counted run)
+    frame0 = {}
+
+    def stages() -> dict:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        with torch.no_grad():
+            lat = G.sample_latent(params, 1)
+            dx, dr = params.timenet(params.c_xyz, 0.0, lat)
+            m3, r3 = deform.lbs_blend(params.xyz, params.rotation,
+                                      params.c_xyz, dx, dr,
+                                      G.get_c_radius(params, "s2"), knn[1],
+                                      knn[0])
+            wv, fp, cp = camera_tensors(cam, dev)
+            opac = G.get_opacity(params)
+            ev[0].record()
+            pr = projection.project(
+                m3, G.get_scaling(params, "s2"), r3, opac,
+                G.get_features(params), wv, fp, cp, float(cam.tan_fovx),
+                float(cam.tan_fovy), WIDTH, HEIGHT, valid=aux.active)
+            ev[1].record()
+            tl = tiles.build_tile_lists(pr.mean2d, pr.cull_radius, pr.depth,
+                                        pr.in_frustum, HEIGHT, WIDTH, CAPACITY)
+            ev[2].record()
+            attrs = tiles.pack_attrs(pr.mean2d, pr.conic, opac, pr.color,
+                                     pr.depth, pr.normal,
+                                     radius=pr.cull_radius)
+            packed = attrs[tl.idx.long()]
+            ev[3].record()
+            counts = tl.count.reshape(tiles.num_tiles(HEIGHT, WIDTH))
+            o7, tf = ct.composite(packed, counts, HEIGHT, WIDTH)
+            ev[4].record()
+            ct.composite_tiles_bwd(packed, counts, tf,
+                                   torch.cat([o7, tf[None]]))
+            ev[5].record()
+        torch.cuda.synchronize()
+        frame0["lists"] = tl
+        names = ("projection", "tile_lists", "pack_gather", "k8", "k9")
+        return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+    runs = [stages() for _ in range(12)][2:]
+    stage_ms = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+    print(f"tile path stages (ms, mean of {len(runs)}): "
+          + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items()))
+
+    listed = int(frame0["lists"].count.sum())
+    dropped = int(frame0["lists"].overflow)
+    print(f"tile path frame 0 at capacity {CAPACITY}: {listed} entries "
+          f"listed, {dropped} dropped ({dropped / (listed + dropped):.1%} of "
+          f"{listed + dropped}); image vs capacity {CROSS_CAPACITY} (overflow "
+          f"{cap_delta['overflow_at_4096']}): max |delta| "
+          f"{cap_delta['max']:.4g}, mean {cap_delta['mean']:.4g}, "
+          f"{cap_delta['px_over_1e-2']} of {WIDTH * HEIGHT} px over 1e-2")
+
+    del params, leaves, images
+    x_err, x_rel = cross_check(dev)
+    print(f"tile path phase {time.time() - t_phase:.1f} s")
+    return {"launch": launch, "stage_ms": stage_ms, "fb_ms": fb_ms,
+            "infer_ms": infer_ms, "cross_err": x_err,
+            "cross_grad": x_rel, "entries_listed": listed,
+            "entries_dropped": dropped, "capacity_delta": cap_delta}
 
 
 class Interrupted(Exception):
@@ -654,6 +1222,12 @@ def main() -> None:
           f"{route_ms[0]:.3f} ms by gather, {route_ms[1]:.3f} ms by K7 "
           f"(mean of 6 x 5, alternating); phase {time.time() - t_phase:.1f} s")
 
+    # --- 2f. K5/K6 against their plain versions at the LBS shape --------
+    rows_res = rows_gather_phase(dev, table_t, nn_idx)
+
+    # --- 2g. K8/K9 against their plain versions at the flagship tiles ---
+    tile_res = tile_kernels_phase(dev, p, G.get_opacity(params).detach())
+
     # --- 3. small render on the card vs the same render on the CPU ------
     small = []
     for where in (dev, torch.device("cpu")):
@@ -663,18 +1237,12 @@ def main() -> None:
                                  torch.ones(3, device=where), capacity=1024,
                                  channels=ch) for ch in (7, 3)])
     for i, ch in enumerate((7, 3)):
-        tol = 1e-4 if ch == 7 else 5e-4
-        for key in ("image", "alpha", "depth", "normal"):
-            a = small[0][i][key].cpu()
-            b = small[1][i][key]
-            scale = max(1.0, float(b.abs().max()))
-            err = (a - b).abs()
-            bad = int((err > tol * scale).any(dim=0).sum())
-            if bad > 0.005 * err[0].numel() or float(err.max()) > 2 / 255 * scale:
-                fail(f"small render ch{ch} {key}: card vs CPU max |err| "
-                     f"{float(err.max())}, {bad} px over {tol}")
+        on_card = {k: small[0][i][k].cpu()
+                   for k in ("image", "alpha", "depth", "normal")}
+        compare_planes(on_card, small[1][i], 1e-4 if ch == 7 else 5e-4,
+                       f"small render ch{ch} card vs CPU")
         print(f"small render ch{ch} 256^2: card vs CPU max |err| "
-              f"{float((small[0][i]['image'].cpu() - small[1][i]['image']).abs().max()):.3g}")
+              f"{float((on_card['image'] - small[1][i]['image']).abs().max()):.3g}")
     torch.cuda.synchronize()
 
     # --- 3b. small train step on the card vs the CPU ---------------------
@@ -683,15 +1251,7 @@ def main() -> None:
     loss_cpu, g_cpu = small_train_grads(torch.device("cpu"))
     if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
         fail(f"small train step: loss card {loss_gpu} vs CPU {loss_cpu}")
-    worst = ("", 0.0)
-    for k, ref in g_cpu.items():
-        norm = float(torch.linalg.norm(ref))
-        rel = (float(torch.linalg.norm(g_gpu[k] - ref)) / norm if norm
-               else float(g_gpu[k].abs().sum()))
-        if not rel <= 1e-3:
-            fail(f"small train step: gradient of {k} card vs CPU relative "
-                 f"L2 {rel}")
-        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    worst = compare_grads(g_gpu, g_cpu, 1e-3, "small train step card vs CPU")
     print(f"small train step 2x1x2 at 256^2: loss card {loss_gpu:.6f} CPU "
           f"{loss_cpu:.6f}; worst gradient {worst[0]} relative L2 "
           f"{worst[1]:.3g} ({len(g_cpu)} leaves; {time.time() - t0:.1f} s)")
@@ -706,19 +1266,8 @@ def main() -> None:
              f"{s1_cpu['loss']}")
     # with one shared radius the covariance does not depend on the
     # rotations: their gradient is rounding noise on both devices
-    noise = 1e-6 * float(torch.linalg.norm(s1_cpu["grads"]["xyz"]))
-    worst = ("", 0.0)
-    for k, ref in s1_cpu["grads"].items():
-        if float(torch.linalg.norm(ref)) < noise:
-            if float(torch.linalg.norm(s1_gpu["grads"][k])) >= noise:
-                fail(f"small s1 step: gradient of {k} is noise on the CPU "
-                     "and not on the card")
-            continue
-        rel = rel_l2(s1_gpu["grads"][k], ref)
-        if not rel <= 1e-3:
-            fail(f"small s1 step: gradient of {k} card vs CPU relative L2 "
-                 f"{rel}")
-        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    worst = compare_grads(s1_gpu["grads"], s1_cpu["grads"], 1e-3,
+                          "small s1 step card vs CPU", noise_floor=1e-6)
     if float(s1_cpu["grads"]["mean2d_tap"].abs().sum()) == 0:
         fail("small s1 step: the tap carries no gradient")
     for f in ("denom", "max_radii2d"):
@@ -732,6 +1281,19 @@ def main() -> None:
           f"{s1_gpu['loss']:.6f} CPU {s1_cpu['loss']:.6f}; worst gradient "
           f"{worst[0]} relative L2 {worst[1]:.3g}; denom and max_radii2d "
           f"equal, xyz_grad_accum {acc:.3g} ({time.time() - t0:.1f} s)")
+
+    # --- 3d. small tile-path render and gradient, card vs CPU ------------
+    t0 = time.time()
+    (t_gpu, tg_gpu), (t_cpu, tg_cpu) = (small_tile_render(dev),
+                                        small_tile_render(torch.device("cpu")))
+    if int(t_gpu["overflow"]) != int(t_cpu["overflow"]):
+        fail("small tile render: overflow differs between card and CPU")
+    t_err = compare_planes(t_gpu, t_cpu, 1e-4, "small tile render card vs CPU")
+    t_worst = compare_grads(tg_gpu, tg_cpu, 1e-3,
+                            "small tile render card vs CPU", noise_floor=1e-6)
+    print(f"small tile-path render 256^2 (K8, K9, K2, K4): card vs CPU max "
+          f"|err| {t_err:.3g}; worst gradient {t_worst[0]} relative L2 "
+          f"{t_worst[1]:.3g} ({len(tg_cpu)} leaves; {time.time() - t0:.1f} s)")
 
     # --- 4. the serving path (no graph recorded) --------------------------
     with torch.no_grad():
@@ -935,6 +1497,11 @@ def main() -> None:
           f"{tp['synth_s']:.2f} s; phase wall {tp['wall_s']:.1f} s; launches "
           f"{tr_launch}")
 
+    # --- 8. the tile-compositor path at full width -----------------------
+    torch.cuda.empty_cache()
+    tile = tile_path_phase(dev)
+    tl_launch = tile["launch"]
+
     # --- kernels line, card, device --------------------------------------
     def bound(ops: float, nbytes: float) -> dict:
         t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
@@ -987,12 +1554,49 @@ def main() -> None:
              "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain,
              **bound(0.0, k7_bytes), "library_ms": k7_lib,
              "binning_ms_gather": route_ms[0], "binning_ms_k7": route_ms[1]}]
+    def tile_row(key: str, name: str, line: int) -> dict:
+        r = tile_res[7 if key == "K8 ch7" else 3 if key == "K8 ch3" else "bwd"]
+        return {"name": name, "route": "cuda",
+                "source": "dimo_tpu_torch/csrc/composite_tiles.cu",
+                "replaces": f"dimo_tpu/ops/rasterizer/composite_pallas.py:{line}",
+                "launches": tl_launch[key], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                **bound(r["ops"], r["bytes"]), "library_ms": None,
+                "entries": tile_res["entries"]}
+
+    def rows_row(key: str, name: str, line: int) -> dict:
+        r = rows_res[key.lower()]
+        return {"name": name, "route": "cuda",
+                "source": "dimo_tpu_torch/csrc/smallgather.cu",
+                "replaces": f"dimo_tpu/ops/smallgather.py:{line}",
+                "launches": tl_launch[key], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound(0.0, r["bytes"]),
+                "library_ms": r["lib_ms"]}
+
+    for row in rows:
+        if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd"):
+            row["launches_tile_path"] = tl_launch[
+                "K2" if row["name"].endswith("fwd") else "K4"]
+    tile_bwd = tile_row("K9", "composite_tiles_bwd", 280)
+    tile_bwd["max_rel_col_err"] = tile_res["bwd"]["rel"]
+    rows += [rows_row("K5", "gather_small_rows_fwd", 68),
+             rows_row("K6", "gather_small_rows_bwd", 83),
+             tile_row("K8 ch7", "composite_tiles_fwd_ch7", 205),
+             tile_row("K8 ch3", "composite_tiles_fwd_ch3", 205), tile_bwd]
     print(json.dumps({"fps_ch3": fps,
                       "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
                       "train_step_ms": step_ms, "train_split_ms": split,
                       "trainer_ms_per_step": tp["ms_per_step"],
                       "trainer_stage_s": tp["stage_s"],
-                      "trainer_wall_s": tp["wall_s"]}))
+                      "trainer_wall_s": tp["wall_s"],
+                      "tile_path_stage_ms": tile["stage_ms"],
+                      "tile_path_fwd_bwd_ms": tile["fb_ms"],
+                      "tile_path_ch3_ms": tile["infer_ms"],
+                      "tile_path_entries_listed": tile["entries_listed"],
+                      "tile_path_entries_dropped": tile["entries_dropped"],
+                      "tile_path_image_vs_capacity_4096": tile["capacity_delta"],
+                      "tile_vs_strip_max_err": tile["cross_err"],
+                      "tile_vs_strip_grad_rel_l2": tile["cross_grad"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,13 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-KERNELS = ("composite_strips", "smallgather", "windowdma")
+KERNELS = ("composite_strips", "composite_tiles", "smallgather", "windowdma")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -93,6 +94,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _libs[name] = lib
     return lib
+
+
+def function(lib: str, name: str, argtypes: list):
+    """The C function `name` of kernel library `lib`, returning a
+    cudaError_t. Its ctypes signature is set once, here, and the function
+    is kept, so a launch costs one dictionary lookup and no attribute
+    writes."""
+    fn = _fns.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(lib, name)] = fn
+    return fn
 
 
 def check(rc: int, what: str) -> None:

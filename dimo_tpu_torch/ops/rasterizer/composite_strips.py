@@ -61,6 +61,10 @@ LN2 = 0.6931471805599453
 # ("ch7" exhaustive, "ch3"/"ch4" early exit) and K3 ("bwd"); chip_smoke
 # reads them
 launches = {"ch3": 0, "ch4": 0, "ch7": 0, "bwd": 0}
+# table, idx, count, out, entries, table_rows, cs, nrows, ncols, out_ch, stream
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# table, idx, count, tfin, gout, dslot, table_rows, cs, nrows, ncols, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _shift_coefs(rows: torch.Tensor, sc: torch.Tensor, sr: torch.Tensor):
@@ -241,13 +245,8 @@ def _composite_cuda(table, idx, count, height, width, out_ch, entries_out):
                                count.contiguous())
     out = torch.empty((out_ch + 1, height, width), dtype=torch.float32,
                       device=table.device)
-    lib = build.load("composite_strips")
-    fn = lib.composite_strips_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("composite_strips", "composite_strips_fwd",
+                        _FWD_ARGTYPES)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     build.check(fn(table_c.data_ptr(), idx_c.data_ptr(), count_c.data_ptr(),
                    out.data_ptr(),
@@ -275,10 +274,8 @@ def _composite_bwd_cuda(table, idx, count, tfin, gout):
     ins = [t.contiguous() for t in (table, idx, count, tfin, gout)]
     out = torch.empty((ns, cs, COEF_DIM), dtype=torch.float32,
                       device=table.device)
-    lib = build.load("composite_strips")
-    fn = lib.composite_strips_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("composite_strips", "composite_strips_bwd",
+                        _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     build.check(fn(*(t.data_ptr() for t in ins), out.data_ptr(),
                    table.shape[0], cs, nrows, ncols, stream),

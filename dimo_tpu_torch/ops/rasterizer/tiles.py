@@ -1,8 +1,14 @@
-"""Per-bin Gaussian list construction (plain tensor ops).
+"""Per-bin Gaussian list construction (plain tensor ops), and the tile
+compositor's attribute table.
 
-Counterpart of `dimo_tpu/ops/rasterizer/tiles.py::build_bin_lists` with the
-reference's TIER2=5 medium tier hard-coded and both of its window
-readout routes. The formulation is the same duplicate-key sort:
+Counterpart of `dimo_tpu/ops/rasterizer/tiles.py`: `build_bin_lists` with
+the reference's TIER2=5 medium tier hard-coded and both of its window
+readout routes; `build_tile_lists`, the same over (TILE_H, TILE_W) =
+(32, 128)-pixel tiles; and `pack_attrs`, the (N+1, 16) attribute table the
+tile compositor (`composite_tiles.py`) reads. The reference's
+`DIMO_TILE_H` sweep knob is not carried over: the tile height is 32, the
+reference's default and the only height its kernels were tuned for. The
+list formulation is the same duplicate-key sort:
 
   * each "small" gaussian (bbox within a KR x KC bin footprint) emits one
     (bin || quantized-depth, index) int32 key pair per overlapped bin
@@ -45,6 +51,17 @@ from typing import NamedTuple
 import torch
 
 from dimo_tpu_torch.ops.rasterizer import windowdma
+
+# the tile compositor's tile, in pixels
+TILE_H = 32
+TILE_W = 128
+# packed attribute lanes of the tile compositor's table (padded to 16)
+ATTR_DIM = 16
+A_MX, A_MY, A_CA, A_CB, A_CC, A_OP = 0, 1, 2, 3, 4, 5
+A_R, A_G, A_B, A_DEPTH = 6, 7, 8, 9
+A_NX, A_NY, A_NZ = 10, 11, 12
+A_RADIUS = 13
+OUT_CH = 7  # composited channels: r g b depth nx ny nz
 
 # duplication footprint of the small path (strips.py passes DUP for both)
 DUP_KR = 2
@@ -94,6 +111,43 @@ def _nearest_k(key: torch.Tensor, k: int):
     on ties (the selection `lax.top_k(-key, k)` makes)."""
     skey, sidx = torch.sort(key, stable=True)
     return skey[:k], sidx[:k].to(torch.int32)
+
+
+def num_tiles(height: int, width: int) -> tuple[int, int]:
+    """(rows, columns) of 32 x 128 tiles; the image must be whole tiles."""
+    if height % TILE_H or width % TILE_W:
+        raise ValueError(f"image {height} x {width} is not a multiple of "
+                         f"the {TILE_H} x {TILE_W} tile")
+    return height // TILE_H, width // TILE_W
+
+
+def build_tile_lists(mean2d, radius, depth, ok, height: int, width: int,
+                     capacity: int) -> TileLists:
+    """Depth-ordered fixed-capacity per-tile Gaussian lists."""
+    nrows, ncols = num_tiles(height, width)
+    return build_bin_lists(mean2d, radius, depth, ok, nrows, ncols,
+                           TILE_H, TILE_W, capacity)
+
+
+def pack_attrs(mean2d, conic, opacity, color, depth, normal,
+               radius=None) -> torch.Tensor:
+    """Stack per-Gaussian attributes into an (N+1, 16) table; the last row
+    is the zero "dummy" that padded list slots point at (opacity 0: no
+    contribution). radius None stores 1e9. Differentiable in every input."""
+    n = mean2d.shape[0]
+    if radius is None:
+        radius = torch.full((n,), 1e9, dtype=mean2d.dtype,
+                            device=mean2d.device)
+    cols = [mean2d[:, 0], mean2d[:, 1],
+            conic[:, 0], conic[:, 1], conic[:, 2],
+            opacity[:, 0],
+            color[:, 0], color[:, 1], color[:, 2],
+            depth,
+            normal[:, 0], normal[:, 1], normal[:, 2],
+            radius]
+    attrs = torch.stack(cols, dim=-1)                          # (N, 14)
+    attrs = torch.cat([attrs, attrs.new_zeros((n, ATTR_DIM - len(cols)))], -1)
+    return torch.cat([attrs, attrs.new_zeros((1, ATTR_DIM))], dim=0)
 
 
 def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,

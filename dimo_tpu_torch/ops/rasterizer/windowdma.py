@@ -29,6 +29,8 @@ from dimo_tpu_torch import build
 
 # launches of the CUDA kernel since the last reset (chip_smoke reads it)
 launches = 0
+# pairs, starts, out, nd, t, capacity, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def gather_windows_plain(pairs: torch.Tensor, starts: torch.Tensor,
@@ -56,11 +58,7 @@ def _gather_windows_cuda(pairs: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((t, capacity, 2), dtype=torch.int32,
                       device=pairs.device)
     if t > 0 and capacity > 0:
-        fn = build.load("windowdma").gather_windows
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = build.function("windowdma", "gather_windows", _ARGTYPES)
         stream = torch.cuda.current_stream(pairs.device).cuda_stream
         build.check(fn(pairs_c.data_ptr(), starts_c.data_ptr(),
                        out.data_ptr(), nd, t, capacity, stream),

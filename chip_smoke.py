@@ -9,21 +9,28 @@
    compositor and K9 its backward) from `dimo_tpu_torch/csrc/` with nvcc,
    one process per source, all started at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the flagship render gives it: K2 bit-exact; K1 7-channel at
+   shapes the flagship render gives it: K2 bit-exact, also on a ragged
+   last block, S % 4 != 0, an idx view one element off 16-byte alignment,
+   a transposed idx, indices -1 and M, and M = 1,024; K1 7-channel at
    atol 1e-5; K1 3-channel early exit against the plain exhaustive
    composite at 5e-4 (the T_EXIT tail bound); K3 per list slot at 1e-4 of
    each lane's max |grad| (only the order of the per-entry sums differs;
    an alpha replayed differently from K1 would show as an O(1) slot);
    K4 at 1e-5 of each entry's sum of |g| (atomics add in any order);
    K7 bit-exact, at the flagship's sorted pairs and window starts
-   (capacity 1024) and at capacity 64 with windows that overrun the
-   array end, and the flagship's strip lists by both readout routes
+   (capacity 1024), with all starts odd or even, at capacities 63, 64 and
+   2,050 with windows that start at or overrun the array end, and for a
+   single bin, and the flagship's strip lists by both readout routes
    (`tiles.WINDMA` off and on) equal in all four outputs; K5 bit-exact
    and K6 at 1e-5 of each entry's sum of |g|, at the LBS shape ((512, 11)
    table, 400,000 sites) and on a (100000, 16) table; K8
    7-channel at 1e-5 (reported bit-exact or not) and 3-channel equal to the
    7-channel's first planes, K9 per slab slot at 1e-4 of each column's max
    |grad|, on the flagship's tile lists (64 tiles, capacity 1024).
+   Times each kernel by CUDA events around a loop of wrapper calls (`ms`,
+   the host-paced time a caller pays) and, for the small kernels K2 and
+   K4-K7 and their library calls, inside a CUDA graph (`graph_ms`, the
+   device's own time; see `graph_ms`).
 3. Checks a small render on the card against the same render on the CPU
    (plain versions): 1e-4, except the rare pixel where one entry sits on
    the 1/255 alpha cut. Then a small train step (2,048 Gaussians, 32
@@ -173,6 +180,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds of one fn() call with the host out of the
+    loop: `iters` calls captured into one CUDA graph, replayed `replays`
+    times between CUDA events. `cuda_ms` of the same fn is the host-paced
+    time a caller of the wrapper pays; the difference is the host's share.
+    The ctypes launches land in the graph because the wrappers launch on
+    `torch.cuda.current_stream()`, which is the capture stream here; a
+    wrapper's launch counter moves once per captured call, not per replay.
+    Back-to-back replays find the inputs in the 50 MB L2 cache, for a
+    kernel and its library call alike."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -283,6 +327,77 @@ def small_s1_step(device) -> dict:
                     ("denom", "max_radii2d", "xyz_grad_accum")}}
 
 
+def k2_edge_cases(dev, table_t, nn_idx) -> list[str]:
+    """K2 bit-exact against its plain version beyond the flagship shape:
+    the vector path's ragged last block, the scalar path (S % 4 != 0, an
+    idx view one element off 16-byte alignment, a transposed idx), indices
+    out of range, and M = 1,024. Returns the cases' names."""
+    import torch
+    from dimo_tpu_torch.ops import smallgather as sg
+    m = table_t.shape[1]
+    flat = nn_idx.reshape(-1)
+    bad = nn_idx.clone()
+    bad[0, :7] = -1
+    bad[1, :5] = m
+    gen = torch.Generator().manual_seed(16)
+    wide = torch.randn((11, 1024), generator=gen).to(dev)
+    wide_idx = torch.randint(-1, 1025, (4, 25_000), generator=gen,
+                             dtype=torch.int32).to(dev)
+    cases = {
+        "S = 4 x 1,001 (ragged last block)": (table_t, nn_idx[:, :1001]),
+        "S = 3 x 1,001 (S % 4 != 0)": (table_t, nn_idx[:3, :1001]),
+        "idx at a storage offset of one element": (table_t,
+                                                   flat[1:1 + 4 * 99_999]),
+        "transposed idx": (table_t, nn_idx.t()),
+        "indices -1 and M": (table_t, bad),
+        "M = 1,024": (wide, wide_idx),
+    }
+    for name, (tab, idx) in cases.items():
+        got = sg.gather_small_cols(tab, idx)
+        ref = sg.gather_small_cols_plain(tab, idx)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            fail(f"K2 disagrees with its plain version ({name}): max |err| "
+                 f"{float((got - ref).abs().max())}")
+    return list(cases)
+
+
+def k7_edge_cases(dev, pairs, starts, capacity) -> list[str]:
+    """K7 bit-exact against its plain version beyond the flagship windows:
+    odd and even starts, an odd capacity (the scalar path), starts == ND,
+    windows that overrun the array end, a single bin. Returns the cases'
+    names."""
+    import torch
+    from dimo_tpu_torch.ops.rasterizer import windowdma as wd
+    nd = pairs.shape[0]
+    end = starts.clone()
+    end[-4:] = torch.tensor([nd - 70, nd - 40, nd - 3, nd], dtype=torch.int32,
+                            device=dev)
+    cases = {
+        "odd starts": (torch.clamp_max(starts | 1, nd), capacity),
+        "even starts": (starts & ~1, capacity),
+        "capacity 63": (starts, 63),
+        "capacity 63, odd starts": (torch.clamp_max(starts | 1, nd), 63),
+        "starts == ND and past the array end": (end, capacity),
+        "capacity 64 past the array end": (end, 64),
+        "capacity 63 past the array end": (end, 63),
+        "capacity 2,050 (three chunks)": (end, 2050),
+        "a single bin": (starts[7:8], capacity),
+        "a single bin at the array end": (end[-2:-1], capacity),
+    }
+    for name, (st, cap) in cases.items():
+        got = wd.gather_windows(pairs, st, cap)
+        ref = wd.gather_windows_plain(pairs, st, cap)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            fail(f"K7 disagrees with its plain version ({name})")
+    got = wd.gather_windows(pairs, end, 64)
+    if bool(got[-1].any()) or not bool(got[-2, :3].any()) \
+            or bool(got[-2, 3:].any()):
+        fail("K7 reads past the array end")
+    return list(cases)
+
+
 def rows_gather_phase(dev, table_t, nn_idx) -> dict:
     """Phase 2f: K5 and K6 against their plain versions at the LBS shape
     (the (M, 11) table K2 reads, transposed, at the flagship's (4, N) KNN
@@ -319,12 +434,19 @@ def rows_gather_phase(dev, table_t, nn_idx) -> dict:
     k5_lib = cuda_ms(lambda: torch.index_select(table, 0, flat), 200)
     k6_lib = cuda_ms(lambda: torch.zeros((m, d), device=dev).index_add_(
         0, flat, g6_flat), 200)
+    k5_graph = graph_ms(lambda: sg.gather_small(table, nn_idx), 200)
+    k6_graph = graph_ms(lambda: sg.gather_small_bwd(g6, nn_idx, m), 200)
+    k5_lib_graph = graph_ms(lambda: torch.index_select(table, 0, flat), 200)
+    k6_lib_graph = graph_ms(lambda: torch.zeros((m, d), device=dev).index_add_(
+        0, flat, g6_flat), 200)
     print(f"K5 gather_small ({m}, {d}) x {tuple(nn_idx.shape)}: bit-exact vs "
           f"plain; {k5_ms:.4f} ms (plain {k5_plain:.4f}, index_select "
-          f"{k5_lib:.4f})")
+          f"{k5_lib:.4f}); in a CUDA graph {k5_graph:.5f} ms (index_select "
+          f"{k5_lib_graph:.5f})")
     print(f"K6 gather_small bwd ({s_sites}, {d}) -> ({m}, {d}): max |err| "
           f"{k6_err:.3g}; {k6_ms:.4f} ms (plain {k6_plain:.4f}, index_add_ "
-          f"{k6_lib:.4f})")
+          f"{k6_lib:.4f}); in a CUDA graph {k6_graph:.5f} ms (index_add_ "
+          f"{k6_lib_graph:.5f})")
     # a large table, some indices out of range
     gen = torch.Generator().manual_seed(15)
     big = torch.randn((100_000, 16), generator=gen).to(dev)
@@ -347,8 +469,10 @@ def rows_gather_phase(dev, table_t, nn_idx) -> dict:
           f"bit-exact, K6 max |err| {big_err:.3g}")
     nbytes = s_sites * 4 + m * d * 4 + s_sites * d * 4
     return {"k5": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, lib_ms=k5_lib,
+                       graph_ms=k5_graph, lib_graph_ms=k5_lib_graph,
                        bytes=nbytes),
             "k6": dict(err=k6_err, ms=k6_ms, plain_ms=k6_plain, lib_ms=k6_lib,
+                       graph_ms=k6_graph, lib_graph_ms=k6_lib_graph,
                        bytes=nbytes)}
 
 
@@ -1056,11 +1180,25 @@ def main() -> None:
     k2_ms = cuda_ms(lambda: sg.gather_small_cols(table_t, nn_idx), 200)
     k2_plain = cuda_ms(lambda: sg.gather_small_cols_plain(table_t, nn_idx), 50)
     k2_lib = cuda_ms(lambda: torch.index_select(table_t, 1, flat), 200)
+    before = sg.launches
+    k2_graph = graph_ms(lambda: sg.gather_small_cols(table_t, nn_idx), 200)
+    if sg.launches - before != 203:
+        fail(f"K2's counter moved {sg.launches - before} times over 3 "
+             f"warm-up calls and 200 captured ones")
+    k2_lib_graph = graph_ms(lambda: torch.index_select(table_t, 1, flat), 200)
     s_sites = nn_idx.numel()
     k2_bytes = s_sites * 4 + table_t.numel() * 4 + 11 * s_sites * 4
+    k2_cases = k2_edge_cases(dev, table_t, nn_idx)
+    print("K2 bit-exact vs plain also for: " + "; ".join(k2_cases))
+    fill = torch.empty((11, s_sites), device=dev)
+    k2_fill = graph_ms(lambda: fill.fill_(0.5), 200)
+    del fill
+    print(f"K2 yardstick: fill_ of its (11, {s_sites}) float32 output in a "
+          f"CUDA graph {k2_fill:.5f} ms")
     print(f"K2 gather_small_cols (11, {table_t.shape[1]}) x {tuple(nn_idx.shape)}:"
           f" bit-exact vs plain; {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
-          f"index_select {k2_lib:.4f})")
+          f"index_select {k2_lib:.4f}); in a CUDA graph {k2_graph:.5f} ms "
+          f"(index_select {k2_lib_graph:.5f})")
     torch.cuda.synchronize()
 
     # --- 2b. K1 against its plain version at the flagship lists ---------
@@ -1156,10 +1294,14 @@ def main() -> None:
                        5)
     k4_lib = cuda_ms(lambda: torch.zeros((11, m), device=dev).index_add_(
         1, flat, g4_flat), 200)
+    k4_graph = graph_ms(lambda: sg.gather_small_cols_bwd(g4, nn_idx, m), 200)
+    k4_lib_graph = graph_ms(lambda: torch.zeros((11, m), device=dev).index_add_(
+        1, flat, g4_flat), 200)
     k4_bytes = s_sites * 4 + 11 * s_sites * 4 + 11 * m * 4
     print(f"K4 gather_small_cols bwd (11, {s_sites}) -> (11, {m}): max |err| "
           f"{k4_err:.3g}; {k4_ms:.4f} ms (plain {k4_plain:.4f}, index_add_ "
-          f"{k4_lib:.4f})")
+          f"{k4_lib:.4f}); in a CUDA graph {k4_graph:.5f} ms (index_add_ "
+          f"{k4_lib_graph:.5f})")
     torch.cuda.synchronize()
 
     # --- 2e. K7 against its plain version; the lists by both routes -----
@@ -1192,22 +1334,31 @@ def main() -> None:
     k7_err = float((got.long() - ref.long()).abs().max())
     if got.shape != (nt, CAPACITY, 2) or not torch.equal(got, ref):
         fail(f"K7 disagrees with its plain version: max |err| {k7_err}")
-    starts_end = starts.clone()
-    starts_end[-4:] = torch.tensor([nd - 70, nd - 40, nd - 3, nd],
-                                   dtype=torch.int32, device=dev)
-    got = wd.gather_windows(pairs, starts_end, 64)
-    ref = wd.gather_windows_plain(pairs, starts_end, 64)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref) or bool(got[-1].any()) \
-            or not bool(got[-2, :3].any()) or bool(got[-2, 3:].any()):
-        fail("K7 disagrees with its plain version at capacity 64 with "
-             "windows overrunning the array end")
+    k7_cases = k7_edge_cases(dev, pairs, starts, CAPACITY)
+    print("K7 bit-exact vs plain also for: " + "; ".join(k7_cases))
+    tiny = torch.zeros(1, device=dev)
+    launch_floor = graph_ms(lambda: tiny.add_(1), 200)
+    print(f"K7 yardstick: a one-element add_ in a CUDA graph "
+          f"{launch_floor:.5f} ms")
+    starts_even, starts_odd = starts & ~1, torch.clamp_max(starts | 1, nd)
+    k7_even = graph_ms(lambda: wd.gather_windows(pairs, starts_even, CAPACITY),
+                       200)
+    k7_odd = graph_ms(lambda: wd.gather_windows(pairs, starts_odd, CAPACITY),
+                      200)
+    print(f"K7 in a CUDA graph with every start even (16-byte loads): "
+          f"{k7_even:.5f} ms, every start odd (8-byte loads): {k7_odd:.5f} ms")
     rows_lib = (starts[:, None] + torch.arange(CAPACITY, device=dev)[None]
                 ).clamp_max(nd - 1).long()
     k7_ms = cuda_ms(lambda: wd.gather_windows(pairs, starts, CAPACITY), 200)
     k7_plain = cuda_ms(lambda: wd.gather_windows_plain(pairs, starts,
                                                        CAPACITY), 50)
     k7_lib = cuda_ms(lambda: pairs[rows_lib], 200)
+    before = wd.launches
+    k7_graph = graph_ms(lambda: wd.gather_windows(pairs, starts, CAPACITY), 200)
+    if wd.launches - before != 203:
+        fail(f"K7's counter moved {wd.launches - before} times over 3 "
+             f"warm-up calls and 200 captured ones")
+    k7_lib_graph = graph_ms(lambda: pairs[rows_lib], 200)
     k7_bytes = 2 * nt * CAPACITY * 8 + nt * 4
     route_ms = {0: [], 1: []}
     for route in (0, 1, 1, 0) * 3:
@@ -1216,9 +1367,10 @@ def main() -> None:
     tiles.WINDMA = 0
     route_ms = {r: sum(v) / len(v) for r, v in route_ms.items()}
     print(f"K7 gather_windows ({nd}, 2) x ({nt},) capacity {CAPACITY}: "
-          f"bit-exact vs plain (also at capacity 64 past the array end); "
+          f"bit-exact vs plain; "
           f"{k7_ms:.4f} ms (plain {k7_plain:.4f}, advanced index "
-          f"{k7_lib:.4f}); strip lists equal by both routes; binning stage "
+          f"{k7_lib:.4f}); in a CUDA graph {k7_graph:.5f} ms (advanced index "
+          f"{k7_lib_graph:.5f}); strip lists equal by both routes; binning stage "
           f"{route_ms[0]:.3f} ms by gather, {route_ms[1]:.3f} ms by K7 "
           f"(mean of 6 x 5, alternating); phase {time.time() - t_phase:.1f} s")
 
@@ -1531,7 +1683,9 @@ def main() -> None:
              "launches": train_launch["K2"], "launches_render": k2_launch,
              "launches_trainer": tr_launch["K2"],
              "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-             **bound(0.0, k2_bytes), "library_ms": k2_lib},
+             **bound(0.0, k2_bytes), "library_ms": k2_lib,
+             "graph_ms": k2_graph, "library_graph_ms": k2_lib_graph,
+             "fill_output_graph_ms": k2_fill},
             {"name": "composite_strips_bwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/composite_strips.cu",
              "replaces": "dimo_tpu/ops/rasterizer/composite_strips.py:394",
@@ -1546,13 +1700,16 @@ def main() -> None:
              "launches": train_launch["K4"],
              "launches_trainer": tr_launch["K4"], "max_abs_err": k4_err,
              "ms": k4_ms, "plain_ms": k4_plain, **bound(0.0, k4_bytes),
-             "library_ms": k4_lib},
+             "library_ms": k4_lib, "graph_ms": k4_graph,
+             "library_graph_ms": k4_lib_graph},
             {"name": "gather_windows", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/windowdma.cu",
              "replaces": "dimo_tpu/ops/rasterizer/windowdma.py:35",
              "launches": tr_launch["K7"], "launches_trainer": tr_launch["K7"],
              "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain,
              **bound(0.0, k7_bytes), "library_ms": k7_lib,
+             "graph_ms": k7_graph, "library_graph_ms": k7_lib_graph,
+             "launch_floor_graph_ms": launch_floor,
              "binning_ms_gather": route_ms[0], "binning_ms_k7": route_ms[1]}]
     def tile_row(key: str, name: str, line: int) -> dict:
         r = tile_res[7 if key == "K8 ch7" else 3 if key == "K8 ch3" else "bwd"]
@@ -1571,7 +1728,8 @@ def main() -> None:
                 "replaces": f"dimo_tpu/ops/smallgather.py:{line}",
                 "launches": tl_launch[key], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound(0.0, r["bytes"]),
-                "library_ms": r["lib_ms"]}
+                "library_ms": r["lib_ms"], "graph_ms": r["graph_ms"],
+                "library_graph_ms": r["lib_graph_ms"]}
 
     for row in rows:
         if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd"):

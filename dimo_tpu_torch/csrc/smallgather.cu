@@ -10,38 +10,81 @@
 //
 // What bounds it on the H100: bytes. At the flagship (D=11, M=512,
 // S=K*N=400k) the kernel reads 1.6 MB of indices and writes 17.6 MB of
-// output, against a 22.5 KB table; at 3.35 TB/s that is ~5.8 us. There is
-// no arithmetic to speak of.
+// output, against a 22.5 KB table: 5.74 us at 3.35 TB/s. There is no
+// arithmetic to speak of.
 //
-// Design: each block stages the whole table in shared memory once (11*M
-// floats, 22.5 KB at M=512, 45 KB at M=1024), then walks sites with a
-// grid-stride loop, one site per thread per step. A thread reads its
-// index with one coalesced 4-byte load and writes its D values as D
-// coalesced row stores (row d of the output is contiguous over sites), so
-// device memory sees only the index read and the output write. The grid
-// is capped at a few blocks per SM so the table is staged ~500 times, not
-// once per 256 sites. The gather is exact (no bf16 split); an index
-// outside [0, M) reads zeros, as the TPU kernel's one-hot does.
+// Design: each thread owns FOUR consecutive sites: one 16-byte int4 index
+// load, the table reads of four rows issued before their stores, and each
+// of the D output rows written as one 16-byte float4 streaming store
+// (__stcs), so a warp moves 512 bytes per store instruction. The table is
+// read through the read-only path (__ldg) and stays in L1 after first
+// touch: no shared-memory copy, no barrier. The grid is ceil(S / 4 / 256)
+// blocks, 391 at the flagship; at 64 registers a thread an SM holds four
+// blocks, so the card holds them all at once: one wave. The vector path
+// needs S % 4 == 0 and 16-byte aligned idx and out; any other input (a
+// view at a storage offset, S % 4 != 0) takes the scalar path of the same
+// kernel, sites strided by the grid's thread count so every warp store
+// stays coalesced.
+//
+// Measured in a CUDA graph on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py,
+// PERF.md, Findings), in turns: 7.29-7.30 us against 9.69-9.70 for the design
+// it replaced (a grid of 4 blocks per SM, each staging the table in shared
+// memory behind a barrier, then one site per thread per step with one
+// dependent index load and D scalar stores); a fill_ of the output alone
+// takes 5.50-5.53 us. Holding all D rows in registers before the stores
+// (119 registers, 1.5 waves) took 9.2-9.3 us; staging the table in shared
+// memory on top of this design took 2-6% less, not taken: it would bound M
+// and bring back the attribute call for large tables.
+//
+// Exact float32 (no bf16 split); an index outside [0, M) reads zeros, as
+// the TPU kernel's one-hot does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSites = 4;       // consecutive sites per thread (K2)
+constexpr int kRowChunk = 4;    // table rows read before their stores (K2)
 
-__global__ void gather_cols_kernel(const float* __restrict__ table,
-                                   const int32_t* __restrict__ idx,
-                                   float* __restrict__ out,
-                                   int d, int m, int64_t s) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < d * m; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t site = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       site < s; site += stride) {
-    const int j = idx[site];
-    const bool ok = (j >= 0) && (j < m);
-    for (int r = 0; r < d; ++r) out[r * s + site] = ok ? tab[r * m + j] : 0.0f;
+__global__ void __launch_bounds__(kThreads)
+gather_cols_kernel(const float* __restrict__ table,
+                   const int32_t* __restrict__ idx, float* __restrict__ out,
+                   int d, int m, int64_t s, bool vec) {
+  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (vec) {
+    const int64_t groups = s / kSites;           // float4s per output row
+    if (g >= groups) return;
+    const int4 j = __ldg(reinterpret_cast<const int4*>(idx) + g);
+    const bool ok0 = (unsigned)j.x < (unsigned)m;
+    const bool ok1 = (unsigned)j.y < (unsigned)m;
+    const bool ok2 = (unsigned)j.z < (unsigned)m;
+    const bool ok3 = (unsigned)j.w < (unsigned)m;
+    float4* o = reinterpret_cast<float4*>(out) + g;
+    for (int r0 = 0; r0 < d; r0 += kRowChunk) {
+      float4 v[kRowChunk];
+#pragma unroll
+      for (int i = 0; i < kRowChunk; ++i) {
+        if (r0 + i < d) {
+          const float* t = table + (int64_t)(r0 + i) * m;
+          v[i].x = ok0 ? __ldg(t + j.x) : 0.0f;
+          v[i].y = ok1 ? __ldg(t + j.y) : 0.0f;
+          v[i].z = ok2 ? __ldg(t + j.z) : 0.0f;
+          v[i].w = ok3 ? __ldg(t + j.w) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRowChunk; ++i)
+        if (r0 + i < d) __stcs(o + (int64_t)(r0 + i) * groups, v[i]);
+    }
+    return;
+  }
+  const int64_t threads = (int64_t)gridDim.x * kThreads;
+  for (int64_t site = g; site < s; site += threads) {
+    const int j = __ldg(idx + site);
+    const bool ok = (unsigned)j < (unsigned)m;
+    for (int r = 0; r < d; ++r)
+      __stcs(out + r * s + site, ok ? __ldg(table + (int64_t)r * m + j) : 0.0f);
   }
 }
 
@@ -156,22 +199,18 @@ __global__ void scatter_rows_kernel(const float* __restrict__ g,
 
 }  // namespace
 
+// table: (d, m) float32; idx: (s,) int32; out: (d, s) float32.
+// Returns cudaError_t.
 extern "C" int gather_small_cols_fwd(const float* table, const int32_t* idx,
                                      float* out, int d, int m, int64_t s,
-                                     int num_sms, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)d * (size_t)m;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gather_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int64_t blocks = (s + kThreads - 1) / kThreads;
-  const int64_t cap = 4 * (int64_t)num_sms;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  gather_cols_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      table, idx, out, d, m, s);
+                                     cudaStream_t stream) {
+  if (s <= 0) return 0;
+  const bool vec = s % kSites == 0 &&
+                   (reinterpret_cast<uintptr_t>(idx) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int64_t blocks = (s + kSites * kThreads - 1) / (kSites * kThreads);
+  gather_cols_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      table, idx, out, d, m, s, vec);
   return (int)cudaGetLastError();
 }
 

@@ -46,22 +46,29 @@ def gather_windows_plain(pairs: torch.Tensor, starts: torch.Tensor,
 
 def _gather_windows_cuda(pairs: torch.Tensor, starts: torch.Tensor,
                          capacity: int) -> torch.Tensor:
+    """K7's launch, cut to what it must do: it runs once per render."""
     global launches
     nd, t = pairs.shape[0], starts.shape[0]
-    if t > 65535:
-        raise ValueError(f"{t} bins exceed the kernel's grid limit of 65535")
     if nd + capacity >= 1 << 31:
         raise ValueError(f"pair array of {nd} rows is too long for int32 "
                          "offsets")
-    pairs_c = pairs.contiguous()
-    starts_c = starts.contiguous()
+    if capacity > 65535 * 1024:
+        raise ValueError(f"capacity {capacity} exceeds the kernel's grid "
+                         "limit of 65535 chunks of 1024 rows")
+    if not pairs.is_contiguous():
+        pairs = pairs.contiguous()
+    if not starts.is_contiguous():
+        starts = starts.contiguous()
+    if pairs.data_ptr() % 8:
+        raise ValueError("pairs must be 8-byte aligned: the kernel reads "
+                         "(key, val) rows as int2")
     out = torch.empty((t, capacity, 2), dtype=torch.int32,
                       device=pairs.device)
     if t > 0 and capacity > 0:
         fn = build.function("windowdma", "gather_windows", _ARGTYPES)
-        stream = torch.cuda.current_stream(pairs.device).cuda_stream
-        build.check(fn(pairs_c.data_ptr(), starts_c.data_ptr(),
-                       out.data_ptr(), nd, t, capacity, stream),
+        build.check(fn(pairs.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                       nd, t, capacity,
+                       torch.cuda.current_stream(pairs.device).cuda_stream),
                     "gather_windows")
         launches += 1
     return out

@@ -42,7 +42,11 @@ launches = 0
 bwd_launches = 0
 rows_launches = 0
 rows_bwd_launches = 0
-# table/cotangent, idx, out, d, m, s, num_sms, stream (K2, K4)
+# table, idx, out, d, m, s, stream (K2: its grid follows s alone)
+_GATHER_COLS_ARGTYPES = ([ctypes.c_void_p] * 3
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_void_p])
+# cotangent, idx, dtable, d, m, s, num_sms, stream (K4)
 _COLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p])
@@ -89,29 +93,35 @@ def _num_sms(device: torch.device) -> int:
 
 
 def _gather_cols_cuda(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K2's launch, cut to what it must do: it runs once per render."""
     global launches
     if table_t.dtype != torch.float32:
         raise TypeError(f"table must be float32, got {table_t.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if idx.device != table_t.device:
+    dev = table_t.device
+    if idx.device != dev:
         raise ValueError("table and idx must be on the same device")
     d, m = table_t.shape
     if d * m * 4 > 227 * 1024:
-        raise ValueError(f"table ({d}, {m}) does not fit in shared memory")
-    table_c = table_t.contiguous()
-    flat = idx.reshape(-1).contiguous()
-    s = flat.shape[0]
-    out = torch.empty((d, s), dtype=torch.float32, device=table_t.device)
+        # K2 reads the table from device memory at any size, but its
+        # backward K4 stages it in shared memory
+        raise ValueError(f"table ({d}, {m}) does not fit in shared memory, "
+                         "which the backward (K4) needs")
+    if not table_t.is_contiguous():
+        table_t = table_t.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    out = torch.empty((d, *idx.shape), dtype=torch.float32, device=dev)
+    s = idx.numel()
     if s > 0:
         fn = build.function("smallgather", "gather_small_cols_fwd",
-                            _COLS_ARGTYPES)
-        stream = torch.cuda.current_stream(table_t.device).cuda_stream
-        build.check(fn(table_c.data_ptr(), flat.data_ptr(), out.data_ptr(),
-                       d, m, s, _num_sms(table_t.device), stream),
+                            _GATHER_COLS_ARGTYPES)
+        build.check(fn(table_t.data_ptr(), idx.data_ptr(), out.data_ptr(), d,
+                       m, s, torch.cuda.current_stream(dev).cuda_stream),
                     "gather_small_cols")
         launches += 1
-    return out.reshape(d, *idx.shape)
+    return out
 
 
 def _scatter_cols_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tensor:

@@ -61,21 +61,42 @@ def test_find_knn_matches_jax(n, m, n_inactive):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("m", [32, 512])
-def test_gather_small_cols_matches_jax(m):
+@pytest.mark.parametrize("m,case", [
+    pytest.param(32, "base", id="32"),
+    pytest.param(512, "base", id="512"),
+    # the inputs the card's kernel takes down its other paths: a ragged
+    # last block, an idx view one element off 16-byte alignment, and
+    # indices -1 and M, all read as zeros
+    pytest.param(512, "ragged", id="512-ragged"),
+    pytest.param(512, "offset", id="512-offset"),
+    pytest.param(512, "range", id="512-range"),
+])
+def test_gather_small_cols_matches_jax(m, case):
     rng = np.random.RandomState(m)
     table = rng.randn(11, m).astype(np.float32)
-    idx = rng.randint(0, m, (4, 1000)).astype(np.int32)
+    n = 1001 if case == "ragged" else 1000
+    idx = rng.randint(0, m, (4, n)).astype(np.int32)
     idx[0, :5] = m                    # out of range -> zeros on both sides
-    out_t = tsg.gather_small_cols(_t(table), _t(idx))
+    if case == "range":
+        idx[1, :7] = -1
+        idx[2, 3:9] = m
+    idx_t = _t(idx)
+    if case == "offset":              # a view at a storage offset of one
+        idx = idx.reshape(-1)
+        idx_t = _t(np.concatenate([[0], idx]).astype(np.int32))[1:]
+        assert idx_t.storage_offset() == 1
+    out_t = tsg.gather_small_cols(_t(table), idx_t)
     out_j = jsg.gather_small_cols(jnp.asarray(table), jnp.asarray(idx))
-    assert out_t.shape == (11, 4, 1000)
+    assert out_t.shape == (11, *idx.shape)
     atol = 2e-5 * float(np.abs(table).max())
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=0,
                                atol=atol)
-    assert torch.all(out_t[:, 0, :5] == 0)
+    flat = idx.reshape(-1)
+    ok = (flat >= 0) & (flat < m)
+    got = out_t.reshape(11, -1).numpy()
+    assert (got[:, ~ok] == 0).all() and (~ok).sum() >= 5
     # the plain version is the exact gather
-    np.testing.assert_array_equal(out_t[:, 1].numpy(), table[:, idx[1]])
+    np.testing.assert_array_equal(got[:, ok], table[:, flat[ok]])
 
 
 def test_knn_weights_match_jax():

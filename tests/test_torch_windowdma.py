@@ -5,7 +5,9 @@ JAX package, on the CPU.
 tensor) is held bit for bit against `dimo_tpu`'s Pallas kernel in
 interpret mode, for every burst width the reference tests (1, 8 and 7,
 the last forcing grid padding), on windows that start at the array end
-(`starts == ND`) and windows that overrun it. Then the port's
+(`starts == ND`) and windows that overrun it, and on the inputs that take
+the card's kernel down its other paths: odd starts, an odd capacity, a
+single bin. Then the port's
 `build_bin_lists` with the readout route on against the route off
 (exactly equal: the masks after the readout are shared), and against the
 JAX lists on the scene of `tests/test_binning.py`'s readout test.
@@ -35,20 +37,39 @@ def _pairs_and_starts(seed, nd, t):
     return pairs, starts
 
 
-@pytest.mark.parametrize("nburst", [1, 8, 7])
-def test_plain_readout_matches_jax_kernel(nburst):
-    nd, t, cap = 700, 24, 64
+@pytest.mark.parametrize("nburst,cap,kind", [
+    pytest.param(1, 64, "random", id="1"),
+    pytest.param(8, 64, "random", id="8"),
+    pytest.param(7, 64, "random", id="7"),
+    # what the card's kernel takes down its other paths: odd starts (8-byte
+    # aligned windows), an odd capacity (no paired rows), a single bin
+    pytest.param(1, 64, "odd", id="odd-starts"),
+    pytest.param(1, 63, "random", id="cap63"),
+    pytest.param(8, 63, "odd", id="odd-starts-cap63"),
+    pytest.param(1, 64, "single", id="single-bin"),
+])
+def test_plain_readout_matches_jax_kernel(nburst, cap, kind):
+    nd, t = (701, 24) if kind == "odd" else (700, 24)
     pairs, starts = _pairs_and_starts(nburst, nd, t)
+    if kind == "odd":
+        starts = np.minimum(starts | 1, nd).astype(np.int32)
+        assert (starts % 2 == 1).all()
+    if kind == "single":
+        starts = starts[-2:-1]
     ref = np.asarray(jwd.gather_windows(jnp.asarray(pairs), jnp.asarray(starts),
                                         cap, nburst=nburst))
     got = twd.gather_windows(_t(pairs), _t(starts), cap)
-    assert got.dtype == torch.int32 and tuple(got.shape) == (t, cap, 2)
+    assert got.dtype == torch.int32
+    assert tuple(got.shape) == (starts.shape[0], cap, 2)
     np.testing.assert_array_equal(got.numpy(), ref)
     # the contract itself, from numpy
     padded = np.concatenate([pairs, np.zeros((cap, 2), np.int32)])
     want = padded[starts[:, None] + np.arange(cap)[None]]
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (got.numpy()[-1] == 0).all() and (got.numpy()[-2, 3:] == 0).all()
+    # the window at nd - 3 overruns the array end
+    assert (got.numpy()[-1 if kind == "single" else -2, 3:] == 0).all()
+    if kind != "single":
+        assert (got.numpy()[-1] == 0).all()      # starts == ND
 
 
 def test_wrapper_checks_its_inputs():

@@ -37,6 +37,13 @@ and `composite_strips_bwd_plain`, which do the same float32 operations
 per pixel in the same order (one rounding per op, as the kernels are
 built with --fmad=false), so a kernel and its plain version differ only
 in the order of K3's per-entry sums over the strip's pixels.
+
+The kernels give each CUDA block one row group of a strip (`GROUP_ROWS`
+rows, `ROWS_PER_THREAD` rows a thread, `CHUNK` list entries staged a
+pass, one a thread). The early-exit variant votes per row group at chunk
+boundaries (`early_exit_entries` replays where each group stops); K3
+writes per-group partials into a scratch of (Ns, GROUPS, CS, 16) that a
+second pass adds in group order.
 """
 from __future__ import annotations
 
@@ -57,14 +64,22 @@ ALPHA_MAX = 0.99
 T_EXIT = 1e-4         # early-exit threshold of the 3/4-channel variant
 LN2 = 0.6931471805599453
 
+# the kernels' work layout (csrc/composite_strips.cu: kRows, kGroupRows,
+# kGroups, kChunk)
+ROWS_PER_THREAD = 4
+GROUP_ROWS = 8
+GROUPS = STRIP_H // GROUP_ROWS
+CHUNK = STRIP_W * GROUP_ROWS // ROWS_PER_THREAD
+
 # launches of the CUDA kernels since the last reset: K1 per channel variant
-# ("ch7" exhaustive, "ch3"/"ch4" early exit) and K3 ("bwd"); chip_smoke
-# reads them
+# ("ch7" exhaustive, "ch3"/"ch4" early exit) and K3 ("bwd", its group pass
+# and the pass that adds the groups); chip_smoke reads them
 launches = {"ch3": 0, "ch4": 0, "ch7": 0, "bwd": 0}
 # table, idx, count, out, entries, table_rows, cs, nrows, ncols, out_ch, stream
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# table, idx, count, tfin, gout, dslot, table_rows, cs, nrows, ncols, stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# table, idx, count, tfin, gout, dpart, dslot, table_rows, cs, nrows, ncols,
+# stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _shift_coefs(rows: torch.Tensor, sc: torch.Tensor, sr: torch.Tensor):
@@ -217,6 +232,33 @@ def composite_strips_bwd_plain(table: torch.Tensor, idx: torch.Tensor,
     return torch.where(live[..., None], out, zero)
 
 
+def early_exit_entries(table: torch.Tensor, idx: torch.Tensor,
+                       count: torch.Tensor, height: int,
+                       width: int) -> torch.Tensor:
+    """List entries the early-exit kernel walks per (strip, row group),
+    replayed with the plain version's T: a group stops at the first chunk
+    boundary (a multiple of CHUNK, inside its list) at which every one of
+    its pixels has T < T_EXIT, else it walks the whole list. Returns
+    int64 (Ns, GROUPS)."""
+    ns, cs = idx.shape
+    groups = GROUPS
+    pl = _plain_planes(table, idx, height, width, 1)
+    n = torch.clamp(count.long(), 0, cs)
+    walked = n[:, None].repeat(1, groups)
+    open_ = torch.ones((ns, groups), dtype=torch.bool, device=table.device)
+    T = torch.ones((ns, STRIP_H, STRIP_W), dtype=table.dtype,
+                   device=table.device)
+    for j in range(int(n.max()) if ns else 0):
+        if j and j % CHUNK == 0:
+            below = (T < T_EXIT).reshape(ns, groups, -1).all(-1)
+            stop = open_ & below & (j < n)[:, None]
+            walked = torch.where(stop, j, walked)
+            open_ = open_ & ~stop
+        a, _ = _alpha(pl, j)
+        T = T - a * T
+    return walked
+
+
 def _check_lists(table, idx, count, ns):
     if table.dtype != torch.float32 or table.dim() != 2 \
             or table.shape[1] != COEF_DIM:
@@ -248,6 +290,8 @@ def _composite_cuda(table, idx, count, height, width, out_ch, entries_out):
     fn = build.function("composite_strips", "composite_strips_fwd",
                         _FWD_ARGTYPES)
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    if entries_out is not None:
+        entries_out.zero_()      # the row groups of a strip atomicMax into it
     build.check(fn(table_c.data_ptr(), idx_c.data_ptr(), count_c.data_ptr(),
                    out.data_ptr(),
                    entries_out.data_ptr() if entries_out is not None else None,
@@ -272,12 +316,15 @@ def _composite_bwd_cuda(table, idx, count, tfin, gout):
         if t.device != table.device:
             raise ValueError("all inputs must share the table's device")
     ins = [t.contiguous() for t in (table, idx, count, tfin, gout)]
+    dpart = torch.empty((ns, GROUPS, cs, COEF_DIM),
+                        dtype=torch.float32, device=table.device)
     out = torch.empty((ns, cs, COEF_DIM), dtype=torch.float32,
                       device=table.device)
     fn = build.function("composite_strips", "composite_strips_bwd",
                         _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    build.check(fn(*(t.data_ptr() for t in ins), out.data_ptr(),
+    build.check(fn(*(t.data_ptr() for t in ins), dpart.data_ptr(),
+                   out.data_ptr(),
                    table.shape[0], cs, nrows, ncols, stream),
                 "composite_strips_bwd")
     launches["bwd"] += 1

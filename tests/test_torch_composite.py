@@ -62,11 +62,34 @@ def _jax_table_lists(g, width, height, capacity):
     return table, lists
 
 
-@pytest.mark.parametrize("channels,width,height", [(7, 128, 64), (7, 256, 256),
-                                                   (3, 256, 256)])
-def test_composite_plain_matches_jax(channels, width, height):
+# strip counts around the kernels' work layout (ROWS_PER_THREAD rows a
+# thread, CHUNK list entries staged a pass); capacity 128
+R, CHUNK = tcs.ROWS_PER_THREAD, tcs.CHUNK
+COUNTS_LOW = (0, 1, R - 1, R, R + 1, CHUNK - 1, CHUNK, CHUNK + 1)
+COUNTS_HIGH = (CHUNK + 1, 2 * CHUNK - 1, 2 * CHUNK, CHUNK - 1, R + 1, R, 1, 0)
+
+
+def cut_lists(lists, counts, dummy):
+    """The reference's strip lists with strip s holding counts[s % len]
+    entries and the dummy row in every slot past them."""
+    idx = np.array(lists.idx)
+    count = np.resize(np.asarray(counts, np.int32), idx.shape[0])
+    idx[np.arange(idx.shape[1])[None, :] >= count[:, None]] = dummy
+    return lists._replace(idx=jnp.asarray(idx), count=jnp.asarray(count))
+
+
+@pytest.mark.parametrize(
+    "channels,width,height,counts",
+    [(7, 128, 64, None), (7, 256, 256, None), (3, 256, 256, None),
+     (7, 128, 64, COUNTS_LOW), (7, 128, 64, COUNTS_HIGH),
+     (3, 128, 64, COUNTS_LOW)],
+    ids=["7-128-64", "7-256-256", "3-256-256", "7-128-64-counts_low",
+         "7-128-64-counts_high", "3-128-64-counts_low"])
+def test_composite_plain_matches_jax(channels, width, height, counts):
     g = scene(500, 1)
     table, lists = _jax_table_lists(g, width, height, 128)
+    if counts is not None:
+        lists = cut_lists(lists, counts, table.shape[0] - 1)
     bufs = jstrips.build_buffers(table, lists, height, width)
     if channels == 7:
         out = j_cs(bufs.slabs, bufs.evalid, bufs.count)
@@ -95,6 +118,34 @@ def test_composite_dummy_rows_and_empty_strips():
     out = tcs.composite_strips(_t(table), idx2, count2, 64, 128)
     assert torch.all(out[-1, :32, :32] == 1) and torch.all(out[:-1, :32, :32] == 0)
     assert torch.equal(out[:, :, 32:], base[:, :, 32:])
+
+
+def test_early_exit_entries_replays_the_group_vote():
+    """`early_exit_entries` (where each row group of the early-exit kernel
+    stops) against its definition, re-derived from the plain composite's
+    T_final over each list cut at every chunk boundary, on an opaque
+    scene."""
+    height, width, cap = 64, 128, 256
+    g = scene(1500, 5, log_s=(-2.6, -1.9), spread=0.3)
+    table, lists = _jax_table_lists(g, width, height, cap)
+    table = np.array(table)
+    table[:-1, 5] += 2.0          # four times each opacity, capped at 0.99
+    t, idx, count = _t(table), _t(lists.idx), _t(lists.count)
+    walk = tcs.early_exit_entries(t, idx, count, height, width)
+    groups = tcs.GROUPS
+    ns = count.numel()
+    n = count.long()[:, None].expand(ns, groups)
+    ref = n.clone()
+    for b in range(cap - CHUNK, 0, -CHUNK):       # the first boundary wins
+        cut = idx.clone()
+        cut[:, b:] = table.shape[0] - 1
+        T = tcs.composite_strips_plain(t, cut, torch.clamp(count, max=b),
+                                       height, width, 3)[-1]
+        below = (tcs._to_strips(T[None], height, width)[0] < tcs.T_EXIT)
+        below = below.reshape(ns, groups, -1).all(-1)
+        ref = torch.where(below & (b < n), b, ref)
+    assert walk.shape == (ns, groups) and torch.equal(walk, ref)
+    assert bool((walk < n).any()) and bool((walk == n).any())
 
 
 def _raster_both(g, width, height, capacity, channels, valid=None):

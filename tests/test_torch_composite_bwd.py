@@ -34,7 +34,7 @@ from dimo_tpu_torch.ops.rasterizer import projection as tproj
 from dimo_tpu_torch.ops.rasterizer import strips as tstrips
 from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
 
-from test_torch_composite import CAM, scene
+from test_torch_composite import CAM, COUNTS_HIGH, COUNTS_LOW, cut_lists, scene
 from torch_parity import one_torch_thread  # noqa: F401
 
 COEF_LANES = 13          # 6 coefficients + 7 channels; ids carry no grad
@@ -72,9 +72,16 @@ def _lists(width, height):
     return make(*map(jnp.asarray, scene(500, 1)))
 
 
-@pytest.mark.parametrize("width,height", [(128, 64), (256, 256)])
-def test_plain_backward_matches_autograd_of_plain_forward(width, height):
+@pytest.mark.parametrize(
+    "width,height,counts",
+    [(128, 64, None), (256, 256, None), (128, 64, COUNTS_LOW),
+     (128, 64, COUNTS_HIGH)],
+    ids=["128-64", "256-256", "128-64-counts_low", "128-64-counts_high"])
+def test_plain_backward_matches_autograd_of_plain_forward(width, height,
+                                                          counts):
     _, table, lists = _lists(width, height)
+    if counts is not None:
+        lists = cut_lists(lists, counts, table.shape[0] - 1)
     idx, count = _t(lists.idx), _t(lists.count)
     cot = torch.from_numpy(
         np.random.RandomState(7).randn(8, height, width).astype(np.float32))
@@ -92,11 +99,16 @@ def test_plain_backward_matches_autograd_of_plain_forward(width, height):
     assert float(dslot.abs().max()) > 0
 
 
-@pytest.mark.parametrize("width,height", [(128, 64), (256, 256)])
-def test_table_grad_matches_jax_vjp(width, height):
+@pytest.mark.parametrize(
+    "width,height,counts",
+    [(128, 64, None), (256, 256, None), (128, 64, COUNTS_LOW)],
+    ids=["128-64", "256-256", "128-64-counts_low"])
+def test_table_grad_matches_jax_vjp(width, height, counts):
     """coef_table -> compositor, differentiated into the table and into
     coef_table's inputs (mean2d, conic, opacity, colour, depth, normal)."""
     ins, table, lists = _lists(width, height)
+    if counts is not None:
+        lists = cut_lists(lists, counts, table.shape[0] - 1)
     cot = np.random.RandomState(5).randn(8, height, width).astype(np.float32)
 
     def f(tab):

@@ -29,14 +29,17 @@
    single bin, and the flagship's strip lists by both readout routes
    (`tiles.WINDMA` off and on) equal in all four outputs; K5 bit-exact
    and K6 at 1e-5 of each entry's sum of |g|, at the LBS shape ((512, 11)
-   table, 400,000 sites) and on a (100000, 16) table; K8
+   table, 400,000 sites; K6 run twice there, its bit-identity printed), on the
+   edge cases of `rows_edge_cases` (both of K6's routes) and on a
+   (100000, 16) table, with ptxas's registers and the resident blocks per
+   SM of K5 and K6's two kernels; K8
    7-channel at 1e-5 (reported bit-exact or not) and 3-channel equal to the
    7-channel's first planes, K9 per slab slot at 1e-4 of each column's max
    |grad|, on the flagship's tile lists (64 tiles, capacity 1024).
    Times each kernel by CUDA events around a loop of wrapper calls (`ms`,
-   the host-paced time a caller pays) and, for K1, K3, the small kernels
-   K2 and K4-K7 and their library calls, inside a CUDA graph (`graph_ms`,
-   the device's own time; see `graph_ms`).
+   the host-paced time a caller pays) and, for every kernel and the
+   library calls, inside a CUDA graph (`graph_ms`, the device's own time;
+   see `graph_ms`).
 3. Checks a small render on the card against the same render on the CPU
    (plain versions): 1e-4, except the rare pixel where one entry sits on
    the 1/255 alpha cut. Then a small train step (2,048 Gaussians, 32
@@ -63,7 +66,9 @@
    open); one warm-up and 2 timed steps. Checks a finite loss, no skipped
    step, every group with a learning rate moved, and K1 ch7 = K2 = K3 =
    K4 = 16 launches per step (counters zeroed just before, read just
-   after). Prints the step time and its CUDA-event split.
+   after). Prints the step time and its CUDA-event split, and how far
+   the loss and every gradient leaf of one step differ when computed twice
+   from the same state (`step_spread`).
 7. Drives the two-stage trainer at full width with the window readout
    route on (`tiles.WINDMA = 1`, so every render launches K7):
    `Trainer.train_dynamic` on synthetic videos rendered on the card at
@@ -241,6 +246,17 @@ def ptxas_summary(log: str) -> list[str]:
             if "registers" in ln or "spill" in ln]
 
 
+def ptxas_kernel(log: str, name: str) -> str:
+    """ptxas's spill and register/shared-memory lines for the kernel whose
+    mangled name contains `name` (the first such)."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and name in ln:
+            return "; ".join(x.split(":", 1)[-1].strip()
+                             for x in lines[i + 1:i + 3])
+    fail(f"ptxas printed nothing for a kernel named {name}")
+
+
 def train_batch(params, shape, res: int, device, seed: int) -> dict:
     """`scripts/bench_train.py`'s batch on the port: cameras at numpy
     RandomState(seed) azimuths, radius 2.0, fov 33.9 deg; random uint8 GT
@@ -370,6 +386,78 @@ def k2_edge_cases(dev, table_t, nn_idx) -> list[str]:
             fail(f"K2 disagrees with its plain version ({name}): max |err| "
                  f"{float((got - ref).abs().max())}")
     return list(cases)
+
+
+def rows_edge_cases(dev) -> list[str]:
+    """K5 bit-exact and K6 within 1e-5 of each entry's sum of |g| against
+    their plain versions beyond the LBS shape: S % 4 != 0, idx and g as
+    views one element off 16-byte alignment, D in {1, 3, 4, 11, 16, 33},
+    M = 1, M x D just under and just over K6's shared-memory limit (so
+    both of K6's routes run), every index on one row, indices -1 and M
+    only, and S = 0. Returns the cases' names, each with K6's route."""
+    import torch
+    from dimo_tpu_torch.ops import smallgather as sg
+    gen = torch.Generator().manual_seed(18)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rand_idx(m, s, lo=0, hi=None):
+        return torch.randint(lo, m if hi is None else hi, (s,), generator=gen,
+                             dtype=torch.int32)
+
+    def off_by_one(t):
+        """A copy of t that starts one element into its storage."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+        buf[1:] = t.reshape(-1)
+        return buf.to(dev)[1:].view(t.shape)
+
+    # (m, d, idx (cpu), misaligned)
+    cases = {"S = 40,003 (S % 4 != 0)": (512, 11, rand_idx(512, 40_003), False),
+             "idx and g one element off 16-byte alignment":
+                 (512, 11, rand_idx(512, 40_000), True)}
+    for d in (1, 3, 4, 11, 16, 33):
+        cases[f"D = {d}, M = 512"] = (512, d, rand_idx(512, 40_000), False)
+        cases[f"D = {d}, M = 64"] = (64, d, rand_idx(64, 40_000), False)
+    cases["M = 1"] = (1, 11, rand_idx(1, 40_000, -1, 2), False)
+    cases["M = 5,189, D = 11 (just under)"] = (
+        5189, 11, rand_idx(5189, 40_000), False)
+    cases["M = 5,190, D = 11 (just over)"] = (
+        5190, 11, rand_idx(5190, 40_000), False)
+    cases["every index on row 7"] = (512, 11, torch.full((100_000,), 7,
+                                                         dtype=torch.int32),
+                                     False)
+    cases["indices -1 and M only"] = (
+        512, 11, torch.where(rand_idx(2, 40_000) == 0, -1, 512).int(), False)
+    cases["S = 0"] = (512, 11, torch.zeros((0,), dtype=torch.int32), False)
+    names = []
+    for name, (m, d, idx, skew) in cases.items():
+        tab = torch.randn((m, d), generator=gen).to(dev)
+        g = torch.randn((idx.shape[0], d), generator=gen)
+        if skew:
+            idx_d, g_d = off_by_one(idx), off_by_one(g)
+            if idx_d.data_ptr() % 16 == 0 or g_d.data_ptr() % 16 == 0:
+                fail(f"K5/K6 edge case {name}: the views are aligned")
+        else:
+            idx_d, g_d = idx.to(dev), g.to(dev)
+        got = sg.gather_small(tab, idx_d)
+        ref = sg.gather_small_plain(tab, idx_d)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            fail(f"K5 disagrees with its plain version ({name}): max |err| "
+                 f"{float((got - ref).abs().max()) if got.numel() else 0}")
+        got = sg.gather_small_bwd(g_d, idx_d, m)
+        ref = sg.gather_small_bwd_plain(g_d, idx_d, m)
+        mass = sg.gather_small_bwd_plain(g_d.abs(), idx_d, m)
+        torch.cuda.synchronize()
+        if got.shape != (m, d) or not torch.isfinite(got).all() or bool(
+                ((got - ref).abs() > 1e-5 * mass + 1e-30).any()):
+            fail(f"K6 disagrees with its plain version ({name}): max |err| "
+                 f"{float((got - ref).abs().max())} (tol 1e-5 of each "
+                 f"entry's sum of |g|)")
+        route = sg.rows_bwd_plan(m, d, idx.shape[0],
+                                 lambda smem: sg.rows_occupancy(dev, smem)[1],
+                                 sms)[0]
+        names.append(f"{name} [K6 {route}]")
+    return names
 
 
 def k7_edge_cases(dev, pairs, starts, capacity) -> list[str]:
@@ -546,17 +634,36 @@ def strip_edge_cases(dev, lists_at) -> list[str]:
     return list(cases)
 
 
-def rows_gather_phase(dev, table_t, nn_idx) -> dict:
+def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
     """Phase 2f: K5 and K6 against their plain versions at the LBS shape
     (the (M, 11) table K2 reads, transposed, at the flagship's (4, N) KNN
-    indices), timed beside the library calls; then a (100000, 16) table,
-    untimed."""
+    indices), K6 twice (whether the two agree bit for bit is printed),
+    timed beside the library calls;
+    ptxas's registers and the resident blocks per SM of K5 and K6's two
+    kernels (`log`: the smallgather build log); the edge cases; then a
+    (100000, 16) table, untimed."""
     import torch
     from dimo_tpu_torch.ops import smallgather as sg
     table = table_t.T.contiguous()                       # (M, 11)
     m, d = table.shape
     flat = nn_idx.reshape(-1).long()
     s_sites = flat.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem = sg.rows_bwd_smem(m, d)
+    occ = dict(zip(("K5", "K6 block", "K6 combine"),
+                   sg.rows_occupancy(dev, smem)))
+    route, blocks, per_block = sg.rows_bwd_plan(
+        m, d, s_sites, lambda b: sg.rows_occupancy(dev, b)[1], sms)
+    if route != "tables":
+        fail(f"K6 takes the {route} route at the LBS shape ({m}, {d})")
+    ptx = {k: ptxas_kernel(log, n) for k, n in (
+        ("K5", "gather_rows_kernel"), ("K6 block", "scatter_rows_block"),
+        ("K6 combine", "combine_tables"))}
+    for k, v in ptx.items():
+        print(f"  {k}: ptxas {v}; {occ[k]} resident blocks per SM")
+    print(f"K6 table route at ({m}, {d}): {smem} bytes of shared memory a "
+          f"block, {blocks} blocks of {per_block} sites, scratch "
+          f"{blocks * smem} bytes")
     got = sg.gather_small(table, nn_idx)
     ref = sg.gather_small_plain(table, nn_idx)
     torch.cuda.synchronize()
@@ -566,6 +673,7 @@ def rows_gather_phase(dev, table_t, nn_idx) -> dict:
     g6 = torch.randn((*nn_idx.shape, d),
                      generator=torch.Generator().manual_seed(14)).to(dev)
     got = sg.gather_small_bwd(g6, nn_idx, m)
+    again = sg.gather_small_bwd(g6, nn_idx, m)
     ref = sg.gather_small_bwd_plain(g6, nn_idx, m)
     mass = sg.gather_small_bwd_plain(g6.abs(), nn_idx, m)
     torch.cuda.synchronize()
@@ -574,6 +682,16 @@ def rows_gather_phase(dev, table_t, nn_idx) -> dict:
                                               > 1e-5 * mass + 1e-30).any()):
         fail(f"K6 disagrees with its plain version: max |err| {k6_err} "
              f"(tol 1e-5 of each entry's sum of |g|)")
+    # the table route adds with shared atomics: two runs may differ in
+    # their last bits (ROADMAP.md, Queue C)
+    identical = torch.equal(got, again)
+    if bool(((again - ref).abs() > 1e-5 * mass + 1e-30).any()):
+        fail("K6 disagrees with its plain version on a second run")
+    print(f"K6 at the LBS shape, two runs: bit-identical {identical}, max "
+          f"|a - b| {float((got - again).abs().max()):.3g}")
+    edge = rows_edge_cases(dev)
+    print("K5 (bit-exact) and K6 (1e-5 of each entry's |g| mass) also on: "
+          + "; ".join(edge))
     g6_flat = g6.reshape(-1, d)
     k5_ms = cuda_ms(lambda: sg.gather_small(table, nn_idx), 200)
     k6_ms = cuda_ms(lambda: sg.gather_small_bwd(g6, nn_idx, m), 200)
@@ -618,10 +736,14 @@ def rows_gather_phase(dev, table_t, nn_idx) -> dict:
     nbytes = s_sites * 4 + m * d * 4 + s_sites * d * 4
     return {"k5": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, lib_ms=k5_lib,
                        graph_ms=k5_graph, lib_graph_ms=k5_lib_graph,
-                       bytes=nbytes),
+                       bytes=nbytes, ptxas=ptx["K5"],
+                       blocks_per_sm=occ["K5"]),
             "k6": dict(err=k6_err, ms=k6_ms, plain_ms=k6_plain, lib_ms=k6_lib,
                        graph_ms=k6_graph, lib_graph_ms=k6_lib_graph,
-                       bytes=nbytes)}
+                       bytes=nbytes, k6_route=route, bit_identical=identical,
+                       ptxas=[ptx["K6 block"], ptx["K6 combine"]],
+                       blocks_per_sm=[occ["K6 block"], occ["K6 combine"]],
+                       grid=blocks)}
 
 
 def tile_kernels_phase(dev, p, opacity) -> dict:
@@ -663,6 +785,7 @@ def tile_kernels_phase(dev, p, opacity) -> dict:
               else (lambda: ct.composite_infer(packed, counts, HEIGHT, WIDTH, 3)))
         res[ch] = dict(
             err=err7 if ch == 7 else err3, ms=cuda_ms(fn, 50),
+            graph_ms=graph_ms(fn, 50),
             plain_ms=cuda_ms(lambda: ct.composite_tiles_plain(
                 packed, counts, HEIGHT, WIDTH, ch), 2, warmup=1),
             ops=entries * tiles.TILE_H * tiles.TILE_W * (K8_OPS_BASE + 2 * ch),
@@ -673,8 +796,9 @@ def tile_kernels_phase(dev, p, opacity) -> dict:
                  f"|err| {err7:.3g} (tol 1e-5)" if ch == 7 else
                  f"equal to the first planes of ch7 (max |err| vs plain "
                  f"{err3:.3g})")
-              + f"; {res[ch]['ms']:.4f} ms (plain {res[ch]['plain_ms']:.2f}); "
-              f"{entries} entries")
+              + f"; {res[ch]['ms']:.4f} ms, in a CUDA graph "
+              f"{res[ch]['graph_ms']:.4f} ms (plain "
+              f"{res[ch]['plain_ms']:.2f}); {entries} entries")
     gout = torch.randn((8, HEIGHT, WIDTH),
                        generator=torch.Generator().manual_seed(13)).to(dev)
     got = ct.composite_tiles_bwd(packed, counts, tfin, gout)
@@ -693,6 +817,8 @@ def tile_kernels_phase(dev, p, opacity) -> dict:
         err=float(err.max()), rel=k9_rel,
         ms=cuda_ms(lambda: ct.composite_tiles_bwd(packed, counts, tfin, gout),
                    20),
+        graph_ms=graph_ms(lambda: ct.composite_tiles_bwd(packed, counts, tfin,
+                                                         gout), 20),
         plain_ms=cuda_ms(lambda: ct.composite_tiles_bwd_plain(
             packed, counts, tfin, gout), 1, warmup=1),
         ops=entries * tiles.TILE_H * tiles.TILE_W * K9_OPS,
@@ -700,8 +826,9 @@ def tile_kernels_phase(dev, p, opacity) -> dict:
                + packed.numel() * 4))
     print(f"K9 composite_tiles bwd: {bad_slots} slots over tol; max |err| "
           f"{res['bwd']['err']:.3g} ({k9_rel:.3g} of the column max); "
-          f"{res['bwd']['ms']:.4f} ms (plain {res['bwd']['plain_ms']:.2f}); "
-          f"{entries} entries")
+          f"{res['bwd']['ms']:.4f} ms, in a CUDA graph "
+          f"{res['bwd']['graph_ms']:.4f} ms (plain "
+          f"{res['bwd']['plain_ms']:.2f}); {entries} entries")
     return res
 
 
@@ -1088,6 +1215,42 @@ def tile_path_phase(dev) -> dict:
             "infer_ms": infer_ms, "cross_err": x_err,
             "cross_grad": x_rel, "entries_listed": listed,
             "entries_dropped": dropped, "capacity_delta": cap_delta}
+
+
+def step_spread(step_fn, state, batch, lcfg) -> dict:
+    """The loss and every leaf's gradient of one s2 step, computed twice
+    from the same state, inputs and ARAP times (no update between): the
+    largest |difference| of the loss, and of each leaf with its share of
+    the leaf's max |grad|. Atomic adds (K4, gather_rows' index_add_) may
+    make them differ."""
+    import torch
+    from dimo_tpu_torch.train import optim
+    times = torch.rand((lcfg.arap_t_samples,),
+                       generator=torch.Generator().manual_seed(7))
+    leaves = optim.named_leaves(state.params)
+    runs = []
+    for _ in range(2):
+        for leaf in leaves.values():
+            leaf.grad = None
+        loss, _ = step_fn.loss_fn(state.params, state.aux, batch,
+                                  state.step + 1, times)
+        loss.backward()
+        runs.append((loss.detach(), {k: v.grad.detach().clone()
+                                     for k, v in leaves.items()
+                                     if v.grad is not None}))
+    for leaf in leaves.values():
+        leaf.grad = None
+    (la, ga), (lb, gb) = runs
+    if ga.keys() != gb.keys():
+        fail("train step spread: the two runs gave gradients to different "
+             "leaves")
+    grads = {}
+    for k in ga:
+        diff = float((ga[k] - gb[k]).abs().max()) if ga[k].numel() else 0.0
+        top = float(ga[k].abs().max()) if ga[k].numel() else 0.0
+        grads[k] = (diff, diff / top if top > 0 else 0.0)
+    return {"loss": float((la - lb).abs()), "loss_value": float(la),
+            "grads": grads}
 
 
 class Interrupted(Exception):
@@ -1548,7 +1711,7 @@ def main() -> None:
           f"(mean of 6 x 5, alternating); phase {time.time() - t_phase:.1f} s")
 
     # --- 2f. K5/K6 against their plain versions at the LBS shape --------
-    rows_res = rows_gather_phase(dev, table_t, nn_idx)
+    rows_res = rows_gather_phase(dev, table_t, nn_idx, logs["smallgather"])
 
     # --- 2g. K8/K9 against their plain versions at the flagship tiles ---
     tile_res = tile_kernels_phase(dev, p, G.get_opacity(params).detach())
@@ -1781,6 +1944,12 @@ def main() -> None:
         f"{k}={float(last[k]):.5g}" for k in
         ("loss", "mse", "psnr", "ssim_loss", "mask_loss", "smooth",
          "bilateral", "arap", "ga", "grad_norm", "overflow")))
+    spread = step_spread(step_fn, state, batch, lcfg)
+    print("train step run to run (loss and gradients of the same s2 step "
+          "twice from one state, max |a - b| and its share of the leaf's "
+          f"max |grad|): loss {spread['loss']:.3g}; " + "; ".join(
+              f"{k} {v[0]:.3g} ({v[1]:.3g})"
+              for k, v in spread["grads"].items()))
 
     # --- 7. the two-stage trainer, window readout route on ---------------
     del state, batch, step_fn, before, after, metrics
@@ -1901,7 +2070,7 @@ def main() -> None:
                 "launches": tl_launch[key], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 **bound(r["ops"], r["bytes"]), "library_ms": None,
-                "entries": tile_res["entries"]}
+                "graph_ms": r["graph_ms"], "entries": tile_res["entries"]}
 
     def rows_row(key: str, name: str, line: int) -> dict:
         r = rows_res[key.lower()]
@@ -1911,7 +2080,10 @@ def main() -> None:
                 "launches": tl_launch[key], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound(0.0, r["bytes"]),
                 "library_ms": r["lib_ms"], "graph_ms": r["graph_ms"],
-                "library_graph_ms": r["lib_graph_ms"]}
+                "library_graph_ms": r["lib_graph_ms"], "ptxas": r["ptxas"],
+                "blocks_per_sm": r["blocks_per_sm"],
+                **{k: r[k] for k in ("k6_route", "bit_identical", "grid")
+                   if k in r}}
 
     for row in rows:
         if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd"):
@@ -1936,7 +2108,8 @@ def main() -> None:
                       "tile_path_entries_dropped": tile["entries_dropped"],
                       "tile_path_image_vs_capacity_4096": tile["capacity_delta"],
                       "tile_vs_strip_max_err": tile["cross_err"],
-                      "tile_vs_strip_grad_rel_l2": tile["cross_grad"]}))
+                      "tile_vs_strip_grad_rel_l2": tile["cross_grad"],
+                      "train_step_spread": spread}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

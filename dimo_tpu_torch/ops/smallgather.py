@@ -25,7 +25,11 @@ route: an unsupported input raises.
 Numerics: the TPU kernels gather and scatter `hi + lo` (a bf16 split of
 each value, ~2^-17 relative error); the port's are exact float32, so the
 port is compared with the reference at 2e-5 of the values' scale. K4 and
-K6 add with atomics, in an order that varies from run to run.
+K6 add with atomics, in an order that varies from run to run. K6 takes
+one of two routes by the table's size alone (`rows_bwd_plan`): shared
+atomics into a copy of the table per block, whose partial tables a second
+pass adds in a fixed order, or, for a table too large for that, global
+atomics.
 """
 from __future__ import annotations
 
@@ -50,8 +54,23 @@ _GATHER_COLS_ARGTYPES = ([ctypes.c_void_p] * 3
 _COLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p])
-# table/cotangent, idx, out, m, d, s, num_sms, stream (K5, K6)
+# table/cotangent, idx, out, m, d, s, num_sms, stream (K5, K6's atomic
+# route)
 _ROWS_ARGTYPES = _COLS_ARGTYPES
+# cotangent, idx, part, dtable, m, d, s, blocks, per_block, smem, stream
+# (K6's table route)
+_ROWS_TABLES_ARGTYPES = ([ctypes.c_void_p] * 4
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                            ctypes.c_void_p])
+# K6's table route (csrc/smallgather.cu, above K6): one copy of the (M, D)
+# table, padded to float4s, in each block's shared memory, and sites taken
+# BATCH at a time a warp; the table may take SMEM_LIMIT bytes of dynamic
+# shared memory, the 227 KB of an H100 block less the kernel's 4 KB of
+# static index arrays (the kernel's kMaxSmem; the launch refuses a size
+# that differs from its layout).
+SMEM_LIMIT = 232_448 - 4_096
+BATCH = 32
 # sites per one-hot product in the plain backward, and the most elements
 # one such product's one-hot may hold (they bound its memory)
 _PLAIN_CHUNK = 1 << 16
@@ -224,10 +243,47 @@ def gather_small_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def _rows_launch(name: str, a: torch.Tensor, flat: torch.Tensor,
-                 b: torch.Tensor, m: int, d: int) -> None:
-    """Launch K5 (`a` the table, `b` the rows out) or K6 (`a` the cotangent
-    rows, `b` the zeroed table)."""
+def rows_bwd_smem(m: int, d: int) -> int:
+    """Bytes of shared memory a block of K6's table route needs for an
+    (m, d) table."""
+    return 4 * ((m * d + 3) // 4 * 4)
+
+
+def rows_bwd_plan(m: int, d: int, s: int, blocks_per_sm, num_sms: int
+                  ) -> tuple[str, int, int]:
+    """K6's route for an (m, d) table and s sites: ("tables", blocks,
+    sites per block) when the table fits a block's shared memory, else
+    ("atomics", 0, 0). This is the one place of the size rule. The table
+    route's grid is one wave, `blocks_per_sm(smem)` (the occupancy API at
+    `rows_bwd_smem` bytes; called only for that route) times `num_sms`,
+    capped by the BATCH-site batches; each block takes a contiguous range
+    of whole batches, no block's range is empty, and the scratch holds
+    blocks x (m x d rounded up to a multiple of 4) floats."""
+    smem = rows_bwd_smem(m, d)
+    if smem > SMEM_LIMIT:
+        return "atomics", 0, 0
+    batches = -(-s // BATCH)
+    blocks = max(1, min(blocks_per_sm(smem) * num_sms, batches))
+    per = -(-batches // blocks)               # batches a block
+    return "tables", -(-batches // per) if per else 1, per * BATCH
+
+
+@functools.lru_cache(maxsize=None)
+def rows_occupancy(device: torch.device, smem: int) -> tuple[int, int, int]:
+    """Resident blocks per SM of K5, of K6's table-route kernel at `smem`
+    bytes of shared memory, and of K6's second pass (the CUDA occupancy
+    API on the kernels as built)."""
+    blocks = (ctypes.c_int * 3)()
+    fn = build.function("smallgather", "gather_small_rows_occupancy",
+                        [ctypes.c_int64, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        build.check(fn(smem, ctypes.addressof(blocks)),
+                    "gather_small_rows_occupancy")
+    return tuple(blocks)
+
+
+def _rows_check(name: str, a: torch.Tensor, flat: torch.Tensor, m: int,
+                d: int) -> None:
     if a.dtype != torch.float32:
         raise TypeError(f"{name}: values must be float32, got {a.dtype}")
     if flat.dtype != torch.int32:
@@ -236,21 +292,23 @@ def _rows_launch(name: str, a: torch.Tensor, flat: torch.Tensor,
         raise ValueError(f"{name}: values and idx must be on the same device")
     if m >= 1 << 31 or d >= 1 << 31:
         raise ValueError(f"{name}: table ({m}, {d}) is too large")
-    fn = build.function("smallgather", name, _ROWS_ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    build.check(fn(a.data_ptr(), flat.data_ptr(), b.data_ptr(), m, d,
-                   flat.shape[0], _num_sms(a.device), stream), name)
 
 
 def _gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global rows_launches
     m, d = table.shape
     flat = idx.reshape(-1).contiguous()
+    _rows_check("gather_small_rows_fwd", table, flat, m, d)
     out = torch.empty((flat.shape[0], d), dtype=torch.float32,
                       device=table.device)
     if out.numel() > 0:
-        _rows_launch("gather_small_rows_fwd", table.contiguous(), flat, out,
-                     m, d)
+        fn = build.function("smallgather", "gather_small_rows_fwd",
+                            _ROWS_ARGTYPES)
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        build.check(fn(table.contiguous().data_ptr(), flat.data_ptr(),
+                       out.data_ptr(), m, d, flat.shape[0],
+                       _num_sms(table.device), stream),
+                    "gather_small_rows_fwd")
         rows_launches += 1
     return out.reshape(*idx.shape, d)
 
@@ -259,11 +317,33 @@ def _scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tens
     global rows_bwd_launches
     d = g.shape[-1]
     flat = idx.reshape(-1).contiguous()
-    g2 = g.reshape(flat.shape[0], d).contiguous()
-    out = torch.zeros((m, d), dtype=torch.float32, device=g.device)
-    if g2.numel() > 0 and m > 0:
-        _rows_launch("gather_small_rows_bwd", g2, flat, out, m, d)
-        rows_bwd_launches += 1
+    s = flat.shape[0]
+    g2 = g.reshape(s, d).contiguous()
+    _rows_check("gather_small_rows_bwd", g2, flat, m, d)
+    dev = g.device
+    if g2.numel() == 0 or m == 0:
+        return torch.zeros((m, d), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    route, blocks, per_block = rows_bwd_plan(
+        m, d, s, lambda smem: rows_occupancy(dev, smem)[1], _num_sms(dev))
+    if route == "tables":
+        part = torch.empty((blocks, (m * d + 3) // 4 * 4),
+                           dtype=torch.float32, device=dev)
+        out = torch.empty((m, d), dtype=torch.float32, device=dev)
+        fn = build.function("smallgather", "gather_small_rows_bwd_tables",
+                            _ROWS_TABLES_ARGTYPES)
+        build.check(fn(g2.data_ptr(), flat.data_ptr(), part.data_ptr(),
+                       out.data_ptr(), m, d, s, blocks, per_block,
+                       rows_bwd_smem(m, d), stream),
+                    "gather_small_rows_bwd_tables")
+    else:
+        out = torch.zeros((m, d), dtype=torch.float32, device=dev)
+        fn = build.function("smallgather", "gather_small_rows_bwd_atomics",
+                            _ROWS_ARGTYPES)
+        build.check(fn(g2.data_ptr(), flat.data_ptr(), out.data_ptr(), m, d,
+                       s, _num_sms(dev), stream),
+                    "gather_small_rows_bwd_atomics")
+    rows_bwd_launches += 1
     return out
 
 

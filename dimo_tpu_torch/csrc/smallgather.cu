@@ -89,46 +89,6 @@ gather_cols_kernel(const float* __restrict__ table,
 }
 
 
-// K4: the gather's backward, dtable[d, idx[s]] += g[d, s] for a (D, S)
-// cotangent into the (D, M) table.
-//
-// Replaces dimo_tpu/ops/smallgather.py:_bwd_kernel_cols (called through
-// _bwd_call_cols by the custom VJP _gc_bwd), a one-hot bf16 hi+lo matmul
-// on the TPU.
-//
-// What bounds it on the H100: bytes. At the flagship (D=11, M=512,
-// S=400k) it reads 1.6 MB of indices and 17.6 MB of cotangent and writes
-// a 22.5 KB table: ~5.7 us at 3.35 TB/s.
-//
-// Design: each block zeroes a shared-memory copy of the table, walks
-// sites with a grid-stride loop (one coalesced index load and D coalesced
-// cotangent loads per site) and adds into shared memory with shared
-// atomics; then it adds its copy into the output (zeroed by the caller)
-// with one global atomic per nonzero entry. The grid is capped at a few
-// blocks per SM, so the output sees a few hundred atomics per entry, not
-// one per site. An index outside [0, M) contributes nothing. Sums are
-// exact float32 additions in an order that varies from run to run.
-__global__ void scatter_cols_kernel(const float* __restrict__ g,
-                                    const int32_t* __restrict__ idx,
-                                    float* __restrict__ dtable, int d, int m,
-                                    int64_t s) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < d * m; i += blockDim.x) tab[i] = 0.0f;
-  __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t site = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       site < s; site += stride) {
-    const int j = idx[site];
-    if (j < 0 || j >= m) continue;
-    for (int r = 0; r < d; ++r) atomicAdd(&tab[r * m + j], g[r * s + site]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < d * m; i += blockDim.x) {
-    const float v = tab[i];
-    if (v != 0.0f) atomicAdd(&dtable[i], v);
-  }
-}
-
 }  // namespace
 
 // table: (d, m) float32; idx: (s,) int32; out: (d, s) float32.
@@ -143,27 +103,6 @@ extern "C" int gather_small_cols_fwd(const float* table, const int32_t* idx,
   const int64_t blocks = (s + kSites * kThreads - 1) / (kSites * kThreads);
   gather_cols_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
       table, idx, out, d, m, s, vec);
-  return (int)cudaGetLastError();
-}
-
-// dtable: (d, m) float32, zeroed by the caller; g: (d, s) float32.
-// Returns cudaError_t.
-extern "C" int gather_small_cols_bwd(const float* g, const int32_t* idx,
-                                     float* dtable, int d, int m, int64_t s,
-                                     int num_sms, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)d * (size_t)m;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        scatter_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int64_t blocks = (s + kThreads - 1) / kThreads;
-  const int64_t cap = 2 * (int64_t)num_sms;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  scatter_cols_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      g, idx, dtable, d, m, s);
   return (int)cudaGetLastError();
 }
 
@@ -342,14 +281,14 @@ gather_rows_kernel(const float* __restrict__ table,
 //    sized by the occupancy API).
 //
 // An index outside [0, M) adds nothing on either route.
-constexpr int kBlockThreads = 1024;    // K6 table route: threads a block
+constexpr int kBlockThreads = 1024;    // K6/K4 table routes: threads a block
 constexpr int kBlockWarps = kBlockThreads / 32;
-// the dynamic shared memory a block of K6's table kernel may use: the
-// 227 KB of a block, less its static index array
+// the dynamic shared memory a block of K6's (or K4's) table kernel may
+// use: the 227 KB of a block, less K6's static index array
 constexpr int kMaxSmem = 232448 - kBlockWarps * 32 * 4;
 
-// floats of K6's shared table, and of each block's partial: m * d padded
-// to float4s
+// floats of K6's (and K4's) shared table, and of each block's partial:
+// m * d padded to float4s
 __host__ __device__ inline int64_t table_floats(int m, int d) {
   return ((int64_t)m * d + 3) / 4 * 4;
 }
@@ -412,10 +351,10 @@ scatter_rows_block_kernel(const float* __restrict__ g,
     out[i] = reinterpret_cast<const float4*>(tab)[i];
 }
 
-// K6's second pass: dtable[e] = the sum of the blocks' partials at e, in a
-// fixed order. A block of 32 warps takes 32 entries; warp w sums blocks
-// w, w + 32, ... in order, and lane e of warp 0 adds the 32 sums in warp
-// order.
+// The second pass of K6 and K4: dtable[e] = the sum of the blocks'
+// partials at e, in a fixed order. A block of 32 warps takes 32 entries;
+// warp w sums blocks w, w + 32, ... in order, and lane e of warp 0 adds
+// the 32 sums in warp order.
 constexpr int kCombineWarps = 32;
 __global__ void __launch_bounds__(32 * kCombineWarps)
 combine_tables_kernel(const float* __restrict__ part,
@@ -458,8 +397,108 @@ __global__ void scatter_rows_kernel(const float* __restrict__ g,
   }
 }
 
-// Allow K6's table kernel the most dynamic shared memory a block may use,
-// once per device.
+// K4: K2's transpose, dtable[d, idx[s]] += g[d, s] for a (D, S) cotangent
+// into the (D, M) table.
+//
+// Replaces dimo_tpu/ops/smallgather.py:_bwd_kernel_cols (called through
+// _bwd_call_cols by the custom VJP _gc_bwd), a one-hot bf16 hi+lo matmul
+// on the TPU.
+//
+// What bounds it on the H100: bytes, as K6: 1.6 MB of indices and 17.6 MB
+// of cotangent in, a 22.5 KB table out at the LBS shape (D=11, M=512,
+// S=400k), 5.74 us at 3.35 TB/s.
+//
+// K6's two routes in column layout, chosen by the table's size alone by
+// the same rule (ops/smallgather.py, cols_bwd_plan beside rows_bwd_plan):
+// the TABLE route whenever the (D, M) table, padded to float4s, fits a
+// block's dynamic shared memory (kMaxSmem), the ATOMIC route otherwise.
+// Neither is deterministic: both add with float atomics, in an order that
+// varies from run to run.
+//
+// Table route: one wave of 1,024-thread blocks (the occupancy API's
+// resident blocks per SM times the SMs, capped by the 32-site batches:
+// 261 blocks of 1,536 sites at the LBS shape, K6's grid), each over one
+// contiguous range of sites. A block zeroes one shared copy of the (D, M)
+// table; a thread takes one site a step (a warp's index and cotangent
+// loads are 128 coalesced bytes each) and issues kColRows row loads before
+// their shared atomics. The block writes its table as one partial of a
+// blocks x (D x M) scratch (5.9 MB at the LBS shape, in L2), and K6's
+// combine_tables_kernel adds the partials in a fixed order and writes the
+// output: no global atomic, no zeroing of the output.
+//
+// Atomic route, for larger tables: threads walk the sites grid-stride,
+// one index load and D coalesced cotangent loads a site, and add each
+// element into the output (zeroed by the caller) with one global atomic.
+//
+// What holds the table route back: a float atomicAdd on shared memory is
+// a compare-and-swap loop on the H100 (ATOMS.CAST.SPIN in the SASS; on
+// global memory it is one native REDG.E.ADD.F32), 4.4 M of them at the LBS
+// shape, to random banks.
+//
+// Measured in a CUDA graph on NVIDIA H100 80GB HBM3, 700.00 W
+// (chip_smoke.py, PERF.md, Findings), in turns at the LBS shape: 19.33-19.35 us
+// (32 registers, 2 blocks an SM) against 32.18-32.55 for the design it
+// replaced (a grid of 2 blocks of 256 threads an SM adding shared copies
+// into a zeroed output with global atomics), and zeros + index_add_ 384.
+// Designs that lost, in the same runs: a thread owning four sites with
+// one int4 index and one float4 cotangent load a row, as K2 (48 registers,
+// 1 block an SM) 20.97-20.99 us, at 2 blocks an SM 22.51-22.58; one or two
+// rows in flight 19.53-19.54 / 19.29-19.32, eight 19.48-19.52, all eleven
+// 26.56-26.67; 512-thread blocks, 4 an SM, 19.91-20.13; two rows added by
+// one 64-bit compare-and-swap loop 61.8; global atomics into each block's
+// own partial instead of shared ones 59.9-75.4.
+//
+// An index outside [0, M) adds nothing on either route.
+constexpr int kColRows = 4;    // K4: cotangent rows loaded before their adds
+
+__global__ void __launch_bounds__(kBlockThreads, 2)
+scatter_cols_block_kernel(const float* __restrict__ g,
+                          const int32_t* __restrict__ idx,
+                          float* __restrict__ part, int d, int m, int64_t s,
+                          int64_t per_block) {
+  extern __shared__ __align__(16) float tab[];
+  const int64_t tf = table_floats(m, d);
+  for (int i = threadIdx.x; i < tf / 4; i += kBlockThreads)
+    reinterpret_cast<float4*>(tab)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  const int64_t b0 = (int64_t)blockIdx.x * per_block;
+  const int64_t b1 = min64(s, b0 + per_block);
+  for (int64_t site = b0 + threadIdx.x; site < b1; site += kBlockThreads) {
+    const int j = __ldg(idx + site);
+    if ((unsigned)j >= (unsigned)m) continue;
+    for (int r0 = 0; r0 < d; r0 += kColRows) {
+      float v[kColRows];
+#pragma unroll
+      for (int i = 0; i < kColRows; ++i)
+        if (r0 + i < d) v[i] = __ldg(g + (int64_t)(r0 + i) * s + site);
+#pragma unroll
+      for (int i = 0; i < kColRows; ++i)
+        if (r0 + i < d) atomicAdd(tab + (r0 + i) * m + j, v[i]);
+    }
+  }
+  __syncthreads();
+  float4* out = reinterpret_cast<float4*>(part + blockIdx.x * tf);
+  for (int i = threadIdx.x; i < tf / 4; i += kBlockThreads)
+    out[i] = reinterpret_cast<const float4*>(tab)[i];
+}
+
+// K4's atomic route (see above K4).
+__global__ void scatter_cols_kernel(const float* __restrict__ g,
+                                    const int32_t* __restrict__ idx,
+                                    float* __restrict__ dtable, int d, int m,
+                                    int64_t s) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t site = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       site < s; site += stride) {
+    const int j = __ldg(idx + site);
+    if ((unsigned)j >= (unsigned)m) continue;
+    for (int r = 0; r < d; ++r)
+      atomicAdd(dtable + (int64_t)r * m + j, __ldg(g + (int64_t)r * s + site));
+  }
+}
+
+// Allow the table kernels of K6 and K4 the most dynamic shared memory a
+// block may use, once per device.
 cudaError_t allow_table_smem() {
   static bool done[64] = {};
   int dev = 0;
@@ -468,6 +507,10 @@ cudaError_t allow_table_smem() {
   e = cudaFuncSetAttribute(scatter_rows_block_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(scatter_cols_block_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
 }
@@ -553,5 +596,60 @@ extern "C" int gather_small_rows_occupancy(int64_t smem, int* blocks) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks[2], combine_tables_kernel, 32 * kCombineWarps, 0);
+  return (int)e;
+}
+
+// K4's table route. g: (d, s) float32; part: (blocks, table_floats)
+// float32 scratch (d * m rounded up to a multiple of 4); dtable: (d, m)
+// float32, written whole. blocks and per_block come from
+// ops/smallgather.py::cols_bwd_plan; smem must equal table_floats * 4.
+// Returns cudaError_t.
+extern "C" int gather_small_cols_bwd_tables(const float* g, const int32_t* idx,
+                                            float* part, float* dtable, int d,
+                                            int m, int64_t s, int blocks,
+                                            int64_t per_block, int64_t smem,
+                                            cudaStream_t stream) {
+  if (smem != 4 * table_floats(m, d) || smem > kMaxSmem || blocks < 1 ||
+      (int64_t)blocks * per_block < s)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_table_smem();
+  if (e != cudaSuccess) return (int)e;
+  scatter_cols_block_kernel<<<blocks, kBlockThreads, (size_t)smem, stream>>>(
+      g, idx, part, d, m, s, per_block);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int tn = m * d;
+  combine_tables_kernel<<<(tn + 31) / 32, 32 * kCombineWarps, 0, stream>>>(
+      part, dtable, tn, table_floats(m, d), blocks);
+  return (int)cudaGetLastError();
+}
+
+// K4's atomic route. g: (d, s) float32; dtable: (d, m) float32, zeroed by
+// the caller. Returns cudaError_t.
+extern "C" int gather_small_cols_bwd_atomics(const float* g,
+                                             const int32_t* idx,
+                                             float* dtable, int d, int m,
+                                             int64_t s, int num_sms,
+                                             cudaStream_t stream) {
+  int64_t blocks = (s + kThreads - 1) / kThreads;
+  const int64_t cap = 8 * (int64_t)num_sms;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  scatter_cols_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      g, idx, dtable, d, m, s);
+  return (int)cudaGetLastError();
+}
+
+// blocks: (2,) int32, receives the resident blocks per SM of K4's table
+// kernel at `smem` bytes of dynamic shared memory and of its second pass
+// (K6's) on the current device. Returns cudaError_t.
+extern "C" int gather_small_cols_occupancy(int64_t smem, int* blocks) {
+  cudaError_t e = allow_table_smem();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[0], scatter_cols_block_kernel, kBlockThreads, (size_t)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[1], combine_tables_kernel, 32 * kCombineWarps, 0);
   return (int)e;
 }

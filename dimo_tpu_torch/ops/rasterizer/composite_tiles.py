@@ -42,9 +42,12 @@ K9 backward); on a CPU tensor they run `composite_tiles_plain` and
 `composite_tiles_bwd_plain`, which do the same float32 operations per pixel
 in the same order (one rounding per op, as the kernels are built with
 --fmad=false), so a kernel and its plain version differ only in the order
-of K9's per-entry sums over the tile's pixels. The reference's `G_FWD` /
-`G_BWD` block sizes and `DIMO_FORCE_INTERPRET` are TPU tuning and
-debugging knobs and have no counterpart here.
+of K9's per-entry sums over the tile's pixels. K9 skips a pair for a warp
+whose pixels all have a power below POWER_CUT: float32 exp there is below
+1/255, so alpha is exactly 0 in both versions and the pair changes
+nothing. The reference's `G_FWD` / `G_BWD` block sizes and
+`DIMO_FORCE_INTERPRET` are TPU tuning and debugging knobs and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -60,7 +63,10 @@ from dimo_tpu_torch.ops.rasterizer.tiles import (
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
 OP_FLOOR = 1e-30      # a normal float32: 1e-38 would be flushed or denormal
-QUARTERS = 4          # blocks per tile in the kernels (scratch of K9)
+GROUPS = 4            # K9's row groups: blocks, and partials, a tile
+# below this power float32 exp is < 1/255, so alpha is exactly 0 (K9's
+# kPowerCut; ln(1/255) = -5.541)
+POWER_CUT = -5.6
 
 # launches of the CUDA kernels since the last reset: K8 per channel variant
 # and K9 ("bwd"); chip_smoke reads them
@@ -253,7 +259,7 @@ def _composite_bwd_cuda(packed, counts, tfin, gout):
         raise ValueError("all inputs must share packed's device")
     nt, cap = packed.shape[:2]
     ins = [t.contiguous() for t in (packed, counts, tfin, gout)]
-    dpart = torch.empty((nt, QUARTERS, cap, ATTR_DIM), dtype=torch.float32,
+    dpart = torch.empty((nt, GROUPS, cap, ATTR_DIM), dtype=torch.float32,
                         device=packed.device)
     out = torch.empty((nt, cap, ATTR_DIM), dtype=torch.float32,
                       device=packed.device)

@@ -25,11 +25,14 @@ route: an unsupported input raises.
 Numerics: the TPU kernels gather and scatter `hi + lo` (a bf16 split of
 each value, ~2^-17 relative error); the port's are exact float32, so the
 port is compared with the reference at 2e-5 of the values' scale. K4 and
-K6 add with atomics, in an order that varies from run to run. K6 takes
-one of two routes by the table's size alone (`rows_bwd_plan`): shared
-atomics into a copy of the table per block, whose partial tables a second
-pass adds in a fixed order, or, for a table too large for that, global
-atomics.
+K6 add with atomics, in an order that varies from run to run. Each takes
+one of two routes by the table's size alone, by one rule (`rows_bwd_plan`,
+which `cols_bwd_plan` calls): shared atomics into a copy
+of the table per block, whose partial tables a second pass adds in a
+fixed order, or, for a table too large for that, global atomics. The
+reference runs column tables above `MAX_M = 1024` through a plain one-hot
+product (`_gather_cols_xla`); K2 reads the table from device memory, so
+the column pair, too, takes any M.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ rows_bwd_launches = 0
 _GATHER_COLS_ARGTYPES = ([ctypes.c_void_p] * 3
                          + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_void_p])
-# cotangent, idx, dtable, d, m, s, num_sms, stream (K4)
+# cotangent, idx, dtable, d, m, s, num_sms, stream (K4's atomic route)
 _COLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p])
@@ -58,17 +61,18 @@ _COLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
 # route)
 _ROWS_ARGTYPES = _COLS_ARGTYPES
 # cotangent, idx, part, dtable, m, d, s, blocks, per_block, smem, stream
-# (K6's table route)
-_ROWS_TABLES_ARGTYPES = ([ctypes.c_void_p] * 4
-                         + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                            ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-                            ctypes.c_void_p])
-# K6's table route (csrc/smallgather.cu, above K6): one copy of the (M, D)
-# table, padded to float4s, in each block's shared memory, and sites taken
-# BATCH at a time a warp; the table may take SMEM_LIMIT bytes of dynamic
-# shared memory, the 227 KB of an H100 block less the kernel's 4 KB of
-# static index arrays (the kernel's kMaxSmem; the launch refuses a size
-# that differs from its layout).
+# (K6's table route; K4's takes d before m)
+_TABLES_ARGTYPES = ([ctypes.c_void_p] * 4
+                    + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p])
+# The table routes of K6 and K4 (csrc/smallgather.cu, above K6 and K4):
+# one copy of the table, padded to float4s, in each block's shared memory;
+# the table may take SMEM_LIMIT bytes of dynamic shared memory, the 227 KB
+# of an H100 block less K6's 4 KB of static index arrays (the kernels'
+# kMaxSmem; a launch refuses a size that differs from its layout). A
+# block's range of sites is whole batches of BATCH, one warp's coalesced
+# load.
 SMEM_LIMIT = 232_448 - 4_096
 BATCH = 32
 # sites per one-hot product in the plain backward, and the most elements
@@ -100,9 +104,10 @@ def gather_small_cols_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
     g2 = g.reshape(d, -1).float()
     cols = torch.arange(m, device=g.device)
     out = torch.zeros((d, m), dtype=torch.float32, device=g.device)
-    for i in range(0, flat.shape[0], _PLAIN_CHUNK):
-        oh = (flat[i:i + _PLAIN_CHUNK, None] == cols[None, :]).float()
-        out = out + g2[:, i:i + _PLAIN_CHUNK] @ oh
+    chunk = max(1, min(_PLAIN_CHUNK, _PLAIN_ONEHOT // max(m, 1)))
+    for i in range(0, flat.shape[0], chunk):
+        oh = (flat[i:i + chunk, None] == cols[None, :]).float()
+        out = out + g2[:, i:i + chunk] @ oh
     return out
 
 
@@ -122,11 +127,6 @@ def _gather_cols_cuda(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.device != dev:
         raise ValueError("table and idx must be on the same device")
     d, m = table_t.shape
-    if d * m * 4 > 227 * 1024:
-        # K2 reads the table from device memory at any size, but its
-        # backward K4 stages it in shared memory
-        raise ValueError(f"table ({d}, {m}) does not fit in shared memory, "
-                         "which the backward (K4) needs")
     if not table_t.is_contiguous():
         table_t = table_t.contiguous()
     if not idx.is_contiguous():
@@ -145,27 +145,35 @@ def _gather_cols_cuda(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _scatter_cols_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tensor:
     global bwd_launches
-    if g.dtype != torch.float32:
-        raise TypeError(f"cotangent must be float32, got {g.dtype}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if idx.device != g.device:
-        raise ValueError("cotangent and idx must be on the same device")
     d = g.shape[0]
-    if d * m * 4 > 227 * 1024:
-        raise ValueError(f"table ({d}, {m}) does not fit in shared memory")
     flat = idx.reshape(-1).contiguous()
     s = flat.shape[0]
     g2 = g.reshape(d, s).contiguous()
-    out = torch.zeros((d, m), dtype=torch.float32, device=g.device)
-    if s > 0:
-        fn = build.function("smallgather", "gather_small_cols_bwd",
+    _rows_check("gather_small_cols_bwd", g2, flat, m, d)
+    dev = g.device
+    if g2.numel() == 0 or m == 0:
+        return torch.zeros((d, m), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    route, blocks, per_block = cols_bwd_plan(
+        d, m, s, lambda smem: cols_occupancy(dev, smem)[0], _num_sms(dev))
+    if route == "tables":
+        part = torch.empty((blocks, (m * d + 3) // 4 * 4),
+                           dtype=torch.float32, device=dev)
+        out = torch.empty((d, m), dtype=torch.float32, device=dev)
+        fn = build.function("smallgather", "gather_small_cols_bwd_tables",
+                            _TABLES_ARGTYPES)
+        build.check(fn(g2.data_ptr(), flat.data_ptr(), part.data_ptr(),
+                       out.data_ptr(), d, m, s, blocks, per_block,
+                       rows_bwd_smem(m, d), stream),
+                    "gather_small_cols_bwd_tables")
+    else:
+        out = torch.zeros((d, m), dtype=torch.float32, device=dev)
+        fn = build.function("smallgather", "gather_small_cols_bwd_atomics",
                             _COLS_ARGTYPES)
-        stream = torch.cuda.current_stream(g.device).cuda_stream
         build.check(fn(g2.data_ptr(), flat.data_ptr(), out.data_ptr(), d, m,
-                       s, _num_sms(g.device), stream),
-                    "gather_small_cols_bwd")
-        bwd_launches += 1
+                       s, _num_sms(dev), stream),
+                    "gather_small_cols_bwd_atomics")
+    bwd_launches += 1
     return out
 
 
@@ -245,7 +253,8 @@ def gather_small_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
 
 def rows_bwd_smem(m: int, d: int) -> int:
     """Bytes of shared memory a block of K6's table route needs for an
-    (m, d) table."""
+    (m, d) table, and K4's for a (d, m) one: m x d floats padded to
+    float4s."""
     return 4 * ((m * d + 3) // 4 * 4)
 
 
@@ -253,12 +262,13 @@ def rows_bwd_plan(m: int, d: int, s: int, blocks_per_sm, num_sms: int
                   ) -> tuple[str, int, int]:
     """K6's route for an (m, d) table and s sites: ("tables", blocks,
     sites per block) when the table fits a block's shared memory, else
-    ("atomics", 0, 0). This is the one place of the size rule. The table
-    route's grid is one wave, `blocks_per_sm(smem)` (the occupancy API at
-    `rows_bwd_smem` bytes; called only for that route) times `num_sms`,
-    capped by the BATCH-site batches; each block takes a contiguous range
-    of whole batches, no block's range is empty, and the scratch holds
-    blocks x (m x d rounded up to a multiple of 4) floats."""
+    ("atomics", 0, 0). This is the one place of the size rule, K4's too
+    (`cols_bwd_plan`). The table route's grid is one wave,
+    `blocks_per_sm(smem)` (the occupancy API at `rows_bwd_smem` bytes;
+    called only for that route) times `num_sms`, capped by the BATCH-site
+    batches; each block takes a contiguous range of whole batches, no
+    block's range is empty, and the scratch holds blocks x (m x d rounded
+    up to a multiple of 4) floats."""
     smem = rows_bwd_smem(m, d)
     if smem > SMEM_LIMIT:
         return "atomics", 0, 0
@@ -266,6 +276,13 @@ def rows_bwd_plan(m: int, d: int, s: int, blocks_per_sm, num_sms: int
     blocks = max(1, min(blocks_per_sm(smem) * num_sms, batches))
     per = -(-batches // blocks)               # batches a block
     return "tables", -(-batches // per) if per else 1, per * BATCH
+
+
+def cols_bwd_plan(d: int, m: int, s: int, blocks_per_sm, num_sms: int
+                  ) -> tuple[str, int, int]:
+    """K4's route, grid and scratch for a (d, m) table and s sites: K6's
+    for the (m, d) table of the same size (`rows_bwd_plan`)."""
+    return rows_bwd_plan(m, d, s, blocks_per_sm, num_sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,6 +296,20 @@ def rows_occupancy(device: torch.device, smem: int) -> tuple[int, int, int]:
     with torch.cuda.device(device):
         build.check(fn(smem, ctypes.addressof(blocks)),
                     "gather_small_rows_occupancy")
+    return tuple(blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def cols_occupancy(device: torch.device, smem: int) -> tuple[int, int]:
+    """Resident blocks per SM of K4's table-route kernel at `smem` bytes
+    of shared memory and of its second pass (the CUDA occupancy API on the
+    kernels as built)."""
+    blocks = (ctypes.c_int * 2)()
+    fn = build.function("smallgather", "gather_small_cols_occupancy",
+                        [ctypes.c_int64, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        build.check(fn(smem, ctypes.addressof(blocks)),
+                    "gather_small_cols_occupancy")
     return tuple(blocks)
 
 
@@ -331,7 +362,7 @@ def _scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tens
                            dtype=torch.float32, device=dev)
         out = torch.empty((m, d), dtype=torch.float32, device=dev)
         fn = build.function("smallgather", "gather_small_rows_bwd_tables",
-                            _ROWS_TABLES_ARGTYPES)
+                            _TABLES_ARGTYPES)
         build.check(fn(g2.data_ptr(), flat.data_ptr(), part.data_ptr(),
                        out.data_ptr(), m, d, s, blocks, per_block,
                        rows_bwd_smem(m, d), stream),

@@ -38,14 +38,17 @@
    edge cases of `rows_edge_cases` (both of K6's routes) and on a
    (100000, 16) table, with ptxas's registers and the resident blocks per
    SM of K5 and K6's two kernels; K8
-   7-channel bit-exact and 3-channel equal to the 7-channel's first
-   planes, K9 per slab slot at 1e-4 of each lane's max |grad|, zero past
-   each count and on lanes 13-15, bit-identical on a second run, on the
-   flagship's tile lists (64 tiles, capacity 1024) and on
-   `tile_edge_cases` (tile counts 0, 1, 63, 64, 65 and 1,024, capacity
-   1000, 128^2 and 1024^2); it prints the tile pixel-entry pairs with
-   alpha > 0 that K9's bound counts, and K9's registers and resident
-   blocks per SM.
+   7-channel bit-exact and its 4- and 3-channel variants bit-equal to
+   their plain versions and to the 7-channel's first planes, K9 per slab
+   slot at 1e-4 of each lane's max |grad|, zero past each count and on
+   lanes 13-15, bit-identical on a second run, on the flagship's tile
+   lists (64 tiles, capacity 1024) and on `tile_edge_cases` (tile counts
+   0, 1, 63, 64, 65, 255, 256, 257 and 1,024: K9's and K8's chunks,
+   capacity 1000, 128^2 and 1024^2; K8 also on slabs of tiny, huge,
+   nearly singular, faint and opaque Gaussians, which test the box it
+   skips entries by); it prints the tile pixel-entry pairs
+   with alpha > 0 that the bounds of K8 and K9 count, and the registers
+   and resident blocks per SM of K8 (each channel variant) and K9.
    Times each kernel by CUDA events around a loop of wrapper calls (`ms`,
    the host-paced time a caller pays) and, for every kernel and the
    library calls, inside a CUDA graph (`graph_ms`, the device's own time;
@@ -114,9 +117,9 @@
    vs strip path (K1/K3) within 1e-4 on 99% of the pixels of image, alpha,
    depth and normal and within one alpha-cut flip on the rest, and within
    1e-3 relative L2 in every parameter's gradient.
-9. Prints a `kernels` JSON line (all nine kernels, K1 and K8 in both
-   channel variants), the card's name and power limit, and last the device
-   line.
+9. Prints a `kernels` JSON line (all nine kernels, K1 in both channel
+   variants and K8 in all three), the card's name and power limit, and
+   last the device line.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -145,9 +148,13 @@ K1_OPS_POWER = 16
 # 2, T 1, w 1, CG 13, dalpha 3, suffix 2, gate 2, dpower 3, the ten
 # per-pixel terms 9, and one add per term into the strip's sums 10
 K3_OPS = 65
-# K8 float32 ops per (pixel, slab entry): quadratic 10, exp 1, cut/cap 2,
-# w 1, T 1, and 2 per composited channel
+# K8 float32 ops per (pixel, slab entry): the power 10, exp 1, cut/cap 2,
+# w 1, T 1, and 2 per composited channel. A pixel outside the entry's box
+# (`composite_tiles.entry_box`) has alpha exactly 0 without its power, so
+# K8's bound counts K8_OPS_POWER at the pairs inside the box and the rest
+# at the pairs with alpha > 0
 K8_OPS_BASE = 15
+K8_OPS_POWER = 10
 # K9 float32 ops per (pixel, slab entry): the power 10, alpha 3, 1/(1-a)
 # and T 3, w 1, CG 13, dalpha 3, GS 2, gate 2, dpower 2, dy and the
 # per-pixel terms 10, and one add per term into the tile's sums 10. As for
@@ -848,21 +855,23 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
 
 
 def tile_occupancy() -> dict:
-    """Resident blocks per SM of K9 and of its group pass, from the CUDA
-    occupancy API on the kernels as built."""
+    """Resident blocks per SM of K9, of its group pass and of K8 at 7, 4
+    and 3 channels, from the CUDA occupancy API on the kernels as built."""
     import ctypes
     from dimo_tpu_torch import build
-    blocks = (ctypes.c_int * 2)()
+    blocks = (ctypes.c_int * 5)()
     fn = build.function("composite_tiles", "composite_tiles_occupancy",
                         [ctypes.c_void_p])
     build.check(fn(ctypes.addressof(blocks)), "composite_tiles_occupancy")
-    return dict(zip(("bwd", "combine"), blocks))
+    return dict(zip(("bwd", "combine", 7, 4, 3), blocks))
 
 
 def tile_pair_counts(packed, counts) -> tuple:
     """(pixel, slab entry) pairs the tile compositor visits (every live
-    entry at every pixel of its tile), and how many of those have
-    alpha > 0 (the pairs that change the result)."""
+    entry at every pixel of its tile), how many of those lie inside the
+    entry's box (`composite_tiles.entry_box`: the pairs whose power K8
+    needs) and how many have alpha > 0 (the pairs that change the
+    result)."""
     import torch
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
     from dimo_tpu_torch.ops.rasterizer import tiles
@@ -874,22 +883,26 @@ def tile_pair_counts(packed, counts) -> tuple:
     for j in range(int(cnt.max()) if nt else 0):
         a, _ = ct._alpha(k, j, x, y, (cnt > j)[:, None, None])
         live += (a > 0).sum()
-    return int(cnt.sum()) * tiles.TILE_H * tiles.TILE_W, int(live)
+    # whole pixels in [lo, hi] of each axis, clipped to the tile
+    box = ct.entry_box(packed, counts.shape[1])
+    span = lambda lo, hi, n: (torch.floor(hi).clamp(-1, n - 1)    # noqa: E731
+                              - torch.ceil(lo).clamp(0, n) + 1).clamp_min(0)
+    inside = (span(box[..., 0], box[..., 1], tiles.TILE_W)
+              * span(box[..., 2], box[..., 3], tiles.TILE_H))
+    valid = torch.arange(cap, device=packed.device)[None, :] < cnt[:, None]
+    in_box = int(inside[valid].to(torch.float64).sum())
+    return int(cnt.sum()) * tiles.TILE_H * tiles.TILE_W, in_box, int(live)
 
 
-def check_tile_kernels(packed, counts, height: int, width: int,
-                       name: str) -> dict:
-    """K8 ch7 bit-exact against its plain version and K8 ch3 equal to its
-    first planes; K9 per slab slot within 1e-4 of each lane's max |grad|
-    (only the order of the sums over the tile differs), zero past each
-    count and on lanes 13-15, and bit-identical on a second run (no
-    atomics)."""
+def check_tile_fwd(packed, counts, height: int, width: int,
+                   name: str) -> tuple:
+    """K8 ch7 bit-exact against its plain version, and K8 ch4 and ch3
+    bit-equal to theirs and to ch7's first planes. Returns ({channels: max
+    |err|}, ch7's T_final)."""
     import torch
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
-    nt, cap = packed.shape[:2]
     out7, tfin = ct.composite(packed, counts, height, width)
     ref7, ref_t = ct.composite_tiles_plain(packed, counts, height, width)
-    out3, tfin3 = ct.composite_infer(packed, counts, height, width, 3)
     torch.cuda.synchronize()
     err7 = max(float((out7 - ref7).abs().max()),
                float((tfin - ref_t).abs().max()))
@@ -897,8 +910,33 @@ def check_tile_kernels(packed, counts, height: int, width: int,
                                               and torch.equal(tfin, ref_t)):
         fail(f"K8 ch7 is not bit-exact against its plain version ({name}): "
              f"max |err| {err7}")
-    if not (torch.equal(out3, out7[:3]) and torch.equal(tfin3, tfin)):
-        fail(f"K8 ch3 differs from the first planes of K8 ch7 ({name})")
+    errs = {7: err7}
+    for ch in (4, 3):
+        out, tf = ct.composite_infer(packed, counts, height, width, ch)
+        ref, ref_tf = ct.composite_tiles_plain(packed, counts, height, width,
+                                               ch)
+        torch.cuda.synchronize()
+        errs[ch] = max(float((out - ref).abs().max()),
+                       float((tf - ref_tf).abs().max()))
+        if not (torch.equal(out, ref) and torch.equal(tf, ref_tf)):
+            fail(f"K8 ch{ch} is not bit-equal to its plain version ({name}): "
+                 f"max |err| {errs[ch]}")
+        if not (torch.equal(out, out7[:ch]) and torch.equal(tf, tfin)):
+            fail(f"K8 ch{ch} differs from the first planes of K8 ch7 "
+                 f"({name})")
+    return errs, tfin
+
+
+def check_tile_kernels(packed, counts, height: int, width: int,
+                       name: str) -> dict:
+    """`check_tile_fwd`; then K9 per slab slot within 1e-4 of each lane's
+    max |grad| (only the order of the sums over the tile differs), zero
+    past each count and on lanes 13-15, and bit-identical on a second run
+    (no atomics)."""
+    import torch
+    from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
+    nt, cap = packed.shape[:2]
+    errs, tfin = check_tile_fwd(packed, counts, height, width, name)
     gout = torch.randn((8, height, width),
                        generator=torch.Generator().manual_seed(13)).to(
                            packed.device)
@@ -918,24 +956,65 @@ def check_tile_kernels(packed, counts, height: int, width: int,
              f"slots over 1e-4 of their lane's max |grad| (worst {rel:.3g})")
     if not torch.equal(got, again):
         fail(f"K9 differs between two runs ({name})")
-    return dict(err7=err7, err3=float((out3 - ref7[:3]).abs().max()),
-                tfin=tfin, gout=gout, k9_err=float(err.max()), k9_rel=rel,
-                bad_slots=bad_slots)
+    return dict(errs=errs, tfin=tfin, gout=gout, k9_err=float(err.max()),
+                k9_rel=rel, bad_slots=bad_slots)
+
+
+def hard_tile_slabs(dev, seed: int) -> tuple:
+    """Slabs of 2 x 4 tiles, capacity 512, random counts, of Gaussians
+    that test K8's box (`entry_box`): tiny (0.2-0.6 px), huge (20-300 px),
+    nearly degenerate (|correlation| 0.99-0.99999), faint (opacity
+    0.0035-0.0045, at the cut) and opaque (opacity 1) ones, and in each
+    tile a few far off with a flat conic, with a singular conic and with
+    a negative one. Returns (packed, counts, height, width)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    nr, nc, cap = 2, 4, 512
+    rows = np.zeros((nr * nc, cap, 16), np.float32)
+    for t in range(nr * nc):
+        xo, yo = (t % nc) * 128, (t // nc) * 32
+        kind = rng.randint(0, 5, cap)
+        sig = np.where(kind == 0, rng.uniform(0.2, 0.6, cap),
+                       np.where(kind == 1, rng.uniform(20, 300, cap),
+                                rng.uniform(0.6, 8, cap)))
+        rows[t, :, 0] = rng.uniform(xo - 4 * sig, xo + 128 + 4 * sig)
+        rows[t, :, 1] = rng.uniform(yo - 4 * sig, yo + 32 + 4 * sig)
+        ca = rng.uniform(0.2, 5, cap) / sig ** 2
+        cc = rng.uniform(0.2, 5, cap) / sig ** 2
+        rho = np.where(kind == 2, rng.uniform(0.99, 0.99999, cap)
+                       * rng.choice([-1, 1], cap), rng.uniform(-0.9, 0.9, cap))
+        rows[t, :, 2], rows[t, :, 3], rows[t, :, 4] = (
+            ca, rho * np.sqrt(ca * cc), cc)
+        rows[t, :, 5] = np.where(kind == 3, rng.uniform(0.0035, 0.0045, cap),
+                                 np.where(kind == 4, 1.0,
+                                          rng.uniform(0, 1, cap)))
+        rows[t, :, 6:13] = rng.rand(cap, 7)
+        rows[t, :8, 0] = xo + rng.uniform(-2000, 2000, 8)
+        rows[t, :8, 2:5] = [1e-6, 0.0, 1e-6]
+        rows[t, 8:12, 3] = np.sqrt(rows[t, 8:12, 2] * rows[t, 8:12, 4])
+        rows[t, 12:14, 2] = -0.1
+    counts = rng.randint(0, cap + 1, (nr, nc)).astype(np.int32)
+    return (torch.from_numpy(rows).to(dev), torch.from_numpy(counts).to(dev),
+            nr * 32, nc * 128)
 
 
 def tile_edge_cases(dev, lists_at, opacity) -> list[str]:
-    """`check_tile_kernels` on slabs built for K9's layout's edges: tile
-    counts 0, 1, chunk - 1, chunk, chunk + 1 and the capacity (given to
-    the longest lists; slab rows past a count keep their Gaussians, which
-    neither kernel may read), capacity 1000 (no multiple of the chunk),
-    128^2 (4 tiles: fewer blocks than SMs) and 1024^2 (256 tiles, 1,024
-    blocks). lists_at(h, w, capacity) -> (table, lists, projection).
-    Returns the cases' names."""
+    """`check_tile_kernels` on slabs built for the edges of K8's and K9's
+    layouts: tile counts 0, 1, chunk - 1, chunk, chunk + 1 for each
+    kernel's chunk and the capacity (given to the longest lists; slab
+    rows past a count keep their Gaussians, which neither kernel may
+    read), capacity 1000 (no multiple of either chunk), 128^2 (4 tiles:
+    fewer blocks than SMs) and 1024^2 (256 tiles, 1,024 blocks); then
+    `check_tile_fwd` (K8 alone: K9's tolerance is not meant for singular
+    conics) on four `hard_tile_slabs`. lists_at(h, w, capacity) ->
+    (table, lists, projection). Returns the cases' names."""
     import torch
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
     from dimo_tpu_torch.ops.rasterizer import tiles
     from dimo_tpu_torch.ops.rasterizer.tile_path import tile_slabs
-    chunk = 64                             # composite_tiles.cu: kBwdChunk
+    # composite_tiles.cu: K9's kBwdChunk; K8's kFwdChunk, one entry a thread
+    chunks = (64, tiles.TILE_W * (tiles.TILE_H // ct.GROUPS) // ct.COLS)
 
     def slabs(h, w, cap):
         pr = lists_at(h, w, CAPACITY)[2]
@@ -944,7 +1023,8 @@ def tile_edge_cases(dev, lists_at, opacity) -> list[str]:
         return packed, tl.count.reshape(tiles.num_tiles(h, w)).contiguous()
 
     packed, counts = slabs(HEIGHT, WIDTH, CAPACITY)
-    special = [0, 1, chunk - 1, chunk, chunk + 1, CAPACITY]
+    special = sorted({0, 1, CAPACITY}
+                     | {c + d for c in chunks for d in (-1, 0, 1)})
     flat = counts.reshape(-1).clone()
     longest = torch.argsort(flat, descending=True, stable=True)
     flat[longest[:len(special)]] = torch.tensor(special, dtype=torch.int32,
@@ -960,15 +1040,19 @@ def tile_edge_cases(dev, lists_at, opacity) -> list[str]:
               f"blocks)"] = (pk, cn, h, w)
     for name, (pk, cn, h, w) in cases.items():
         check_tile_kernels(pk, cn, h, w, name)
-    return list(cases)
+    hard = [f"K8 alone on hard slabs, seed {seed}" for seed in range(4)]
+    for seed, name in enumerate(hard):
+        check_tile_fwd(*hard_tile_slabs(dev, seed), name)
+    return list(cases) + hard
 
 
 def tile_kernels_phase(dev, p, opacity, lists_at, log: str) -> dict:
     """Phase 2g: K8 and K9 against their plain versions on the flagship's
     tile lists (512^2, capacity 1024: slabs of (64, 1024, 16)) and on
-    `tile_edge_cases`; the pixel-entry pairs with alpha > 0; ptxas's
-    registers and the resident blocks per SM of K9 (`log`: the
-    composite_tiles build log); timed."""
+    `tile_edge_cases`; the pixel-entry pairs inside K8's box and with
+    alpha > 0; ptxas's registers and the resident blocks per SM of K8
+    (each channel variant) and K9 (`log`: the composite_tiles build log);
+    timed."""
     import torch
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
     from dimo_tpu_torch.ops.rasterizer import tiles
@@ -985,11 +1069,16 @@ def tile_kernels_phase(dev, p, opacity, lists_at, log: str) -> dict:
           f"{int(tl.overflow_max)})")
     occ = tile_occupancy()
     ptx = {k: ptxas_kernel(log, n) for k, n in (
-        ("bwd", "composite_tiles_bwd_kernel"), ("combine", "combine_groups"))}
+        ("bwd", "composite_tiles_bwd_kernel"), ("combine", "combine_groups"),
+        *((ch, f"composite_tiles_fwd_kernelILi{ch}E") for ch in (7, 4, 3)))}
     nblocks = nrows * ncols * ct.GROUPS
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for k, v in ptx.items():
-        print(f"  K9 {k}: ptxas {v}; {occ[k]} resident blocks per SM")
+        print(f"  {'K9 ' + k if k in ('bwd', 'combine') else f'K8 ch{k}'}: "
+              f"ptxas {v}; {occ[k]} resident blocks per SM")
+    print(f"K8 layout: {nblocks} blocks of 256 threads at {WIDTH}^2 "
+          f"({ct.GROUPS} row groups a tile, {ct.COLS} columns of one row a "
+          f"thread), {nblocks / (sms * occ[7]):.2f} waves at ch7")
     print(f"K9 layout: {nblocks} blocks of 256 threads at {WIDTH}^2 "
           f"({ct.GROUPS} row groups a tile, 4 rows a thread), "
           f"{nblocks / (sms * occ['bwd']):.2f} waves; scratch "
@@ -997,29 +1086,34 @@ def tile_kernels_phase(dev, p, opacity, lists_at, log: str) -> dict:
     chk = check_tile_kernels(packed, counts, HEIGHT, WIDTH,
                              "the flagship tiles")
     tfin, gout = chk["tfin"], chk["gout"]
-    pairs, live = tile_pair_counts(packed, counts)
-    print(f"tile pixel-entry pairs: {pairs}, of which alpha > 0 {live} "
+    pairs, in_box, live = tile_pair_counts(packed, counts)
+    print(f"tile pixel-entry pairs: {pairs}, of which inside K8's box "
+          f"{in_box} ({in_box / pairs:.4f}), alpha > 0 {live} "
           f"({live / pairs:.4f})")
     edge = tile_edge_cases(dev, lists_at, opacity)
-    print("K8 (ch7 bit-exact, ch3 its first planes) and K9 (1e-4 of each "
-          "lane's max, zeros past the count, bit-identical twice) also on: "
-          + "; ".join(edge))
-    res = {"entries": entries, "pairs": pairs, "live": live}
-    for ch in (7, 3):
+    print("K8 (ch7 bit-exact, ch4 and ch3 bit-equal to their plain versions "
+          "and to ch7's first planes) and K9 (1e-4 of each lane's max, zeros "
+          "past the count, bit-identical twice) also on: " + "; ".join(edge))
+    res = {"entries": entries, "pairs": pairs, "in_box": in_box,
+           "live": live}
+    for ch in (7, 4, 3):
         fn = ((lambda: ct.composite(packed, counts, HEIGHT, WIDTH)) if ch == 7
-              else (lambda: ct.composite_infer(packed, counts, HEIGHT, WIDTH, 3)))
+              else (lambda ch=ch: ct.composite_infer(packed, counts, HEIGHT,
+                                                     WIDTH, ch)))
         res[ch] = dict(
-            err=chk["err7"] if ch == 7 else chk["err3"], ms=cuda_ms(fn, 50),
-            graph_ms=graph_ms(fn, 50),
+            err=chk["errs"][ch], ms=cuda_ms(fn, 50), graph_ms=graph_ms(fn, 50),
             plain_ms=cuda_ms(lambda: ct.composite_tiles_plain(
                 packed, counts, HEIGHT, WIDTH, ch), 2, warmup=1),
-            ops=entries * tiles.TILE_H * tiles.TILE_W * (K8_OPS_BASE + 2 * ch),
+            ops=(in_box * K8_OPS_POWER
+                 + live * (K8_OPS_BASE + 2 * ch - K8_OPS_POWER)),
+            dense_ops=pairs * (K8_OPS_BASE + 2 * ch),
             bytes=(entries * 64 + counts.numel() * 4
-                   + (ch + 1) * HEIGHT * WIDTH * 4))
+                   + (ch + 1) * HEIGHT * WIDTH * 4),
+            ptxas=ptx[ch], blocks_per_sm=occ[ch])
         print(f"K8 composite_tiles ch{ch}: "
               + ("bit-exact vs plain" if ch == 7 else
-                 f"equal to the first planes of ch7 (max |err| vs plain "
-                 f"{chk['err3']:.3g})")
+                 "bit-equal to its plain version and to the first planes of "
+                 "ch7")
               + f"; {res[ch]['ms']:.4f} ms, in a CUDA graph "
               f"{res[ch]['graph_ms']:.4f} ms (plain "
               f"{res[ch]['plain_ms']:.2f}); {entries} entries")
@@ -1034,7 +1128,8 @@ def tile_kernels_phase(dev, p, opacity, lists_at, log: str) -> dict:
         plain_ms=cuda_ms(lambda: ct.composite_tiles_bwd_plain(
             packed, counts, tfin, gout), 1, warmup=1),
         ops=pairs * K9_OPS_POWER + live * (K9_OPS - K9_OPS_POWER),
-        dense_ops=pairs * K9_OPS, bytes=k9_bytes, ptxas=list(ptx.values()),
+        dense_ops=pairs * K9_OPS, bytes=k9_bytes,
+        ptxas=[ptx["bwd"], ptx["combine"]],
         blocks_per_sm=[occ["bwd"], occ["combine"]])
     print(f"K9 composite_tiles bwd: 0 slots over tol; max |err| "
           f"{chk['k9_err']:.3g} ({chk['k9_rel']:.3g} of the lane max); "
@@ -1338,13 +1433,15 @@ def tile_path_phase(dev) -> dict:
              "layout's, transposed")
 
     launch = {"K8 ch7": ct.launches["ch7"], "K8 ch3": ct.launches["ch3"],
-              "K9": ct.launches["bwd"], "K2": sg.launches,
+              "K8 ch4": ct.launches["ch4"], "K9": ct.launches["bwd"],
+              "K2": sg.launches,
               "K4": sg.bwd_launches, "K5": sg.rows_launches,
               "K6": sg.rows_bwd_launches}
-    want = {"K8 ch7": TILE_ITERS, "K8 ch3": TILE_ITERS, "K9": TILE_ITERS,
+    want = {"K8 ch7": TILE_ITERS, "K8 ch3": TILE_ITERS, "K8 ch4": 0,
+            "K9": TILE_ITERS,
             "K2": 2 * TILE_ITERS, "K4": TILE_ITERS, "K5": TILE_ITERS,
             "K6": TILE_ITERS}
-    if launch != want or any(cs.launches.values()) or ct.launches["ch4"]:
+    if launch != want or any(cs.launches.values()):
         fail(f"tile path launches {launch} (strip kernels {cs.launches}), "
              f"expected {want} and no strip kernel")
     print(f"tile path: {TILE_ITERS} renders with backward at {WIDTH}^2, "
@@ -2305,15 +2402,21 @@ def main() -> None:
              "launch_floor_graph_ms": launch_floor,
              "binning_ms_gather": route_ms[0], "binning_ms_k7": route_ms[1]}]
     def tile_row(key: str, name: str, line: int) -> dict:
-        r = tile_res[7 if key == "K8 ch7" else 3 if key == "K8 ch3" else "bwd"]
+        r = tile_res[int(key[-1]) if key.startswith("K8") else "bwd"]
         return {"name": name, "route": "cuda",
                 "source": "dimo_tpu_torch/csrc/composite_tiles.cu",
                 "replaces": f"dimo_tpu/ops/rasterizer/composite_pallas.py:{line}",
                 "launches": tl_launch[key], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 **bound(r["ops"], r["bytes"]), "library_ms": None,
-                "graph_ms": r["graph_ms"], "entries": tile_res["entries"],
+                "graph_ms": r["graph_ms"],
+                "bound_every_pair_ms": bound(r["dense_ops"],
+                                             r["bytes"])["bound_ms"],
+                "ptxas": r["ptxas"], "blocks_per_sm": r["blocks_per_sm"],
+                "entries": tile_res["entries"],
                 "pixel_entry_pairs": tile_res["pairs"],
+                **({"pairs_in_box": tile_res["in_box"]}
+                   if key.startswith("K8") else {}),
                 "pairs_alpha_nonzero": tile_res["live"]}
 
     def rows_row(key: str, name: str, line: int) -> dict:
@@ -2334,16 +2437,11 @@ def main() -> None:
             row["launches_tile_path"] = tl_launch[
                 "K2" if row["name"].endswith("fwd") else "K4"]
     tile_bwd = tile_row("K9", "composite_tiles_bwd", 280)
-    tile_bwd.update(
-        max_rel_lane_err=tile_res["bwd"]["rel"],
-        bound_every_pair_ms=bound(tile_res["bwd"]["dense_ops"],
-                                  tile_res["bwd"]["bytes"])["bound_ms"],
-        ptxas=tile_res["bwd"]["ptxas"],
-        blocks_per_sm=tile_res["bwd"]["blocks_per_sm"])
+    tile_bwd.update(max_rel_lane_err=tile_res["bwd"]["rel"])
     rows += [rows_row("K5", "gather_small_rows_fwd", 68),
              rows_row("K6", "gather_small_rows_bwd", 83),
-             tile_row("K8 ch7", "composite_tiles_fwd_ch7", 205),
-             tile_row("K8 ch3", "composite_tiles_fwd_ch3", 205), tile_bwd]
+             *(tile_row(f"K8 ch{ch}", f"composite_tiles_fwd_ch{ch}", 205)
+               for ch in (7, 4, 3)), tile_bwd]
     print(json.dumps({"fps_ch3": fps,
                       "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
                       "train_step_ms": step_ms, "train_split_ms": split,

@@ -5,36 +5,12 @@
 // K8 replaces dimo_tpu/ops/rasterizer/composite_pallas.py:_fwd_kernel
 // (called through _fwd_call by composite and composite_infer); K9 replaces
 // its _bwd_kernel (called through _bwd_call by the custom VJP
-// _composite_bwd). K9 is described above its kernel. This compositor shares
-// no code with the strip compositor (composite_strips.cu): tile-local
-// coordinates, the log-opacity folded into the exponent, exp instead of
-// exp2, and slabs of packed attributes instead of a coefficient table read
-// by list index. An image and a gradient that agree between the two check
-// both.
-//
-// K8:
-//
-// What bounds it on the H100: operations. Each (pixel, slab entry) pair
-// costs 10 float32 ops for the quadratic (q1, q0 in y, Horner in x), one
-// exp, the cut and the cap (2), w and T (2) and 2 per composited channel:
-// 15 + 2*C, 29 at 7 channels. At 512^2 with capacity 1024 that is up to
-// 65,536 entries x 4,096 pixels x 29 = 7.8 GFLOP against 4 MB of slabs and
-// 8 MB of planes, so the float32 rate sets the floor, not the memory.
-//
-// Design: a tile is 32 rows x 128 columns, and 512^2 has only 64 of them
-// for 132 SMs. So a tile is split into four 32x32 quarters along x, one
-// 32x32-thread block per (tile, quarter), one thread per pixel: 256 blocks,
-// two resident per SM, all reading the same slab (the second to fourth read
-// hit L2). The contract stays per tile: one slab, one count. The block walks
-// the slab in chunks of kChunk entries; the first kChunk threads each load
-// one 64-byte row and compute its six tile-local coefficients once for the
-// block (the reference's _chunk_coeffs), parked with the colours in shared
-// memory; then every thread blends the chunk with T and the channel sums in
-// registers. The loop runs to the tile's count exactly (the reference
-// rounds up to its chunk and relies on the rows past the count being the
-// zero dummy). The TPU's one-hot repeat matmuls, bf16 three-term splits and
-// the capacity axis as a grid dimension do not carry over: a GPU broadcasts
-// from shared memory and loops.
+// _composite_bwd). Each is described above its kernel. This compositor
+// shares no code with the strip compositor (composite_strips.cu):
+// tile-local coordinates, the log-opacity folded into the exponent, exp
+// instead of exp2, and slabs of packed attributes instead of a coefficient
+// table read by list index. An image and a gradient that agree between the
+// two check both.
 //
 // Numerics: built with --fmad=false and written in the plain version's op
 // order (composite_tiles_plain), so both round every product and sum alike;
@@ -47,16 +23,21 @@ namespace {
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 128;
-constexpr int kQuarter = 32;               // columns of a tile one block owns
-constexpr int kQuarters = kTileW / kQuarter;
-constexpr int kThreads = kTileH * kQuarter;
-constexpr int kChunk = 256;                // slab entries staged per pass
 constexpr int kAttrDim = 16;
 // packed attribute lanes (tiles.py)
 constexpr int kMx = 0, kMy = 1, kCa = 2, kCb = 3, kCc = 4, kOp = 5, kR = 6;
 constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kOpFloor = 1e-30f;
+// K8 and K9 both give a block one row group of a tile, 8 rows x 128
+// columns, whose warps each cover 16 columns x 8 rows
+constexpr int kGroupRows = 8;              // rows of a row group: one block
+constexpr int kGroups = kTileH / kGroupRows;   // blocks (K9: partials) a tile
+constexpr int kWarpCols = 16;              // a warp: 16 columns x 8 rows
+constexpr unsigned kFull = 0xffffffffu;
+// below this power expf gives < 1/255: alpha is exactly 0
+// (composite_tiles.py: POWER_CUT, pinned by a test)
+constexpr float kPowerCut = -5.6f;
 
 // One slab row (16 floats) into registers.
 __device__ __forceinline__ void load_row(const float* row, float* r) {
@@ -93,13 +74,30 @@ __device__ __forceinline__ void tile_coeffs(const float* r, float x_off,
   *my_out = my;
 }
 
+// The terms of the power of coefficients c6 that depend on the tile-local
+// row y alone: q1 = cB y + cD and q0 = (cC y + cE) y + cF (6 ops).
+__device__ __forceinline__ void tile_row_terms(const float* c6, float y,
+                                               float* q1, float* q0) {
+  *q1 = c6[1] * y + c6[3];
+  *q0 = (c6[2] * y + c6[4]) * y + c6[5];
+}
+
+// The power at tile-local column x of a row whose terms are q1, q0, with
+// c0 = cA: (cA x + q1) x + q0 (4 ops).
+__device__ __forceinline__ float row_power(float c0, float q1, float q0,
+                                           float x) {
+  return (c0 * x + q1) * x + q0;
+}
+
 // The power of coefficients c6 at tile-local pixel (x, y), in
-// composite_tiles_plain's op order.
+// composite_tiles_plain's op order: the two functions above, so a pixel's
+// power has the same bits whether its row terms were formed for it alone
+// (K9) or once for its row (K8).
 __device__ __forceinline__ float tile_power(const float* c6, float x,
                                             float y) {
-  const float q1 = c6[1] * y + c6[3];
-  const float q0 = (c6[2] * y + c6[4]) * y + c6[5];
-  return (c6[0] * x + q1) * x + q0;
+  float q1, q0;
+  tile_row_terms(c6, y, &q1, &q0);
+  return row_power(c6[0], q1, q0, x);
 }
 
 // alpha of power p; *araw receives exp(p) before the cut and the cap.
@@ -109,85 +107,240 @@ __device__ __forceinline__ float power_alpha(float p, float* araw) {
   return (ar >= kAlphaEps) ? fminf(ar, kAlphaMax) : 0.0f;
 }
 
-// alpha of coefficients c6 at tile-local pixel (x, y). K8 calls this and
-// K9 the two functions it is made of, so K9 replays K8's alpha bit for
-// bit.
-__device__ __forceinline__ float tile_alpha(const float* c6, float x, float y,
-                                            float* araw) {
-  return power_alpha(tile_power(c6, x, y), araw);
+// K8:
+//
+// What bounds it on the H100: instruction issue, and its latency with
+// only four warps a scheduler. Each (pixel, slab entry) pair needs its
+// power (10 float32 ops: q1, q0 in y, Horner in x); a pair with alpha > 0
+// also needs one exp, the cut and the cap (2), w and T (2) and 2 ops per
+// composited channel. At 512^2 with capacity 1024 that is
+// 51,807 entries x 4,096 pixels = 212 M pairs against 3.3 MB of slabs and
+// 8 MB of planes (0.0035 ms of memory), and only ~3% of the pairs have
+// alpha > 0: a kernel that does the work of every pair spends its issue
+// slots on pairs that change nothing.
+//
+// Design, K9's row groups with a box and a power cut per thread: one block
+// of kFwdThreads per (tile, row group of 8 rows): 256 blocks at 512^2, one
+// wave. A thread owns kCols consecutive columns of one row; a warp covers
+// 16 columns x 8 rows. The block walks the slab front to back in chunks of
+// kFwdChunk entries; one thread per entry loads its row, forms its
+// coefficients once for the block (tile_coeffs, the reference's
+// _chunk_coeffs) and its box (entry_box), and parks them with the colours
+// in shared memory as float4s (box | cA cB cC cD | cE cF r0 r1 | r2-r5 |
+// r6), read back by broadcast 128-bit loads. Per entry a thread skips the
+// entry if its pixels all lie outside the box. Otherwise it forms its
+// row's terms once (tile_row_terms, 6 ops) and each pixel's power from
+// them (row_power, 4 ops): tile_power's ops in its order, so the same
+// bits. If all four powers lie below kPowerCut, it skips the entry before
+// the exp, without reading the colours. In both cases expf would give
+// < 1/255, alpha is exactly 0, w = 0, and neither T nor a channel sum
+// changes (for finite colours). Otherwise the thread blends its pixels
+// with T and the channel sums in registers. The entry loop is unrolled
+// kFwdUnroll times. It runs to the tile's count exactly (the reference
+// rounds up to its chunk and relies on the rows past the count being the
+// zero dummy), with no early exit in any variant. A thread stores one
+// float4 per channel, then one of T_final. The TPU's one-hot repeat
+// matmuls, bf16 three-term splits and the capacity axis as a grid
+// dimension do not carry over: a GPU broadcasts from shared memory and
+// loops.
+//
+// The box: the power K8 computes differs from the exact quadratic
+// lop - Q(x - mx, y - my) / 2 of the same float inputs (lop the folded
+// log-opacity, Q the conic's form) only by the rounding of cD, cE, cF and
+// of the row terms and Horner: to first order at most 13 u S (u = 2^-24,
+// S the sum of the magnitudes of the terms at |x| <= 128, |y| <= 32).
+// entry_box gives the bounding box of the ellipse where the exact
+// quadratic reaches kPowerCut - E, E = kBoxRel S + kBoxAbs (5x that
+// bound), with the determinant lowered and the half-widths widened beyond
+// the box's own rounding; a pixel outside it has a computed power below
+// kPowerCut. A conic that is not positive definite, or a value that is not
+// finite, gets the whole plane; an entry whose lop lies below
+// kPowerCut - E gets an empty box.
+//
+// Measured in a CUDA graph on NVIDIA H100 80GB HBM3, 700.00 W
+// (PERF.md, Findings), in turns at 512^2 with capacity 1024 (51,807
+// entries; 10.3% of the (warp, entry) pairs reach a box, 9.2% a pixel
+// with alpha > 0): ch7 0.1054-0.1066 ms, ch4 0.0954-0.0961, ch3
+// 0.0937-0.0939, against 0.4389-0.4394, 0.3708-0.3713 and 0.3500-0.3507
+// for the design it replaced (one pixel a thread, all the work at every
+// pair). Without the box 1.2-1.4x slower; K9's layout (one column of four
+// rows a thread), 4-row groups, a warp vote before the exp and two or
+// eight columns a thread all lost.
+constexpr int kCols = 4;                   // pixel columns a thread owns
+constexpr int kFwdThreads = kTileW * kGroupRows / kCols;   // 256
+constexpr int kFwdChunk = kFwdThreads;     // slab entries staged per pass
+constexpr int kFwdUnroll = 4;              // entries a pass of the loop
+// the box's constants (composite_tiles.py: BOX_*, pinned by a test)
+constexpr float kBoxRel = 4e-6f;   // power margin per unit of S ...
+constexpr float kBoxAbs = 1e-6f;   // ... and beyond it
+constexpr float kBoxDet = 1e-6f;   // det lowered by this share of |ca cc| + cb^2
+constexpr float kBoxGrow = 1.0001f;  // half-widths widened by this factor,
+constexpr float kBoxPad = 1e-3f;     // then by this many pixels
+constexpr float kBoxFar = 1e-6f;     // and this share of |centre|
+static_assert(kCols == 4 && kWarpCols % kCols == 0 &&
+                  32 / (kWarpCols / kCols) == kGroupRows,
+              "a warp's threads cover 16 columns x 8 rows, one row and one "
+              "float4 of each plane a thread");
+static_assert(kFwdChunk % kFwdUnroll == 0, "whole passes in a full chunk");
+
+// float4s an entry of a ch-channel composite parks in shared memory
+// besides its box: the six coefficients, then the ch colours
+__host__ __device__ constexpr int fwd_slots(int ch) {
+  return 2 + (ch + 1) / 4;
 }
 
+// The box (xlo, xhi, ylo, yhi), in tile-local pixels, outside which K8's
+// power of slab row r lies below kPowerCut; (mx, my) is its tile-local
+// centre from tile_coeffs. Its plain version is composite_tiles.py's
+// entry_box.
+__device__ __forceinline__ float4 entry_box(const float* r, float mx,
+                                            float my) {
+  const float inf = __int_as_float(0x7f800000);
+  const float ca = r[kCa], cb = r[kCb], cc = r[kCc];
+  const float lop = logf(fmaxf(r[kOp], kOpFloor));
+  const float X = (float)kTileW, Y = (float)kTileH;
+  const float S = 0.5f * fabsf(ca) * X * X + fabsf(cb) * X * Y
+                  + 0.5f * fabsf(cc) * Y * Y
+                  + (fabsf(ca * mx) + fabsf(cb * my)) * X
+                  + (fabsf(cc * my) + fabsf(cb * mx)) * Y
+                  + 0.5f * fabsf(ca) * mx * mx + 0.5f * fabsf(cc) * my * my
+                  + fabsf(cb * mx * my) + fabsf(lop);
+  const float dlo = (ca * cc - cb * cb) - kBoxDet * (fabsf(ca * cc) + cb * cb);
+  if (!(ca > 0.0f && cc > 0.0f && dlo > 0.0f && S < 1e30f))
+    return make_float4(-inf, inf, -inf, inf);
+  const float h = lop - (kPowerCut - (kBoxRel * S + kBoxAbs));
+  if (!(h > 0.0f)) return make_float4(inf, -inf, inf, -inf);
+  const float rx = sqrtf(2.0f * h * cc / dlo) * kBoxGrow + kBoxPad
+                   + kBoxFar * fabsf(mx);
+  const float ry = sqrtf(2.0f * h * ca / dlo) * kBoxGrow + kBoxPad
+                   + kBoxFar * fabsf(my);
+  return make_float4(mx - rx, mx + rx, my - ry, my + ry);
+}
+
+// at most 64 registers (4 blocks an SM): ptxas fits ch7 without spills.
+// Against (256) alone 1-4% faster at each variant; against no launch
+// bounds 0.7% and 1.7% faster at ch4 and ch3, 1.4% slower at ch7, even
+// over one ch7 and one ch3 launch a render (PERF.md, Findings)
 template <int CH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads, 4)
 composite_tiles_fwd_kernel(const float* __restrict__ packed,
                            const int32_t* __restrict__ counts,
                            float* __restrict__ out, float* __restrict__ tfin,
                            int cap, int nrows, int ncols) {
-  __shared__ float s_coef[6][kChunk];
-  __shared__ float s_col[CH][kChunk];
+  constexpr int kSlots = fwd_slots(CH);
+  constexpr int kAcross = kWarpCols / kCols;    // threads across a warp
+  __shared__ float4 s_box[kFwdChunk];
+  __shared__ float4 s_ent[kSlots][kFwdChunk];
 
-  const int tile = blockIdx.x / kQuarters;
-  const int quarter = blockIdx.x % kQuarters;
+  const int tile = blockIdx.x / kGroups;
+  const int group = blockIdx.x % kGroups;
   const int tr = tile / ncols;
   const int tc = tile % ncols;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kQuarter + tx;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int col0 = (tid / 32) * kWarpCols + (lane % kAcross) * kCols;
+  const int row = group * kGroupRows + lane / kAcross;
   const float x_off = (float)(tc * kTileW);
   const float y_off = (float)(tr * kTileH);
-  const float x = (float)(quarter * kQuarter + tx);   // tile-local column
-  const float y = (float)ty;                           // tile-local row
+  const float y = (float)row;                   // tile-local
+  float x[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) x[i] = (float)(col0 + i);
 
   int n = counts[tile];
   n = n < 0 ? 0 : (n > cap ? cap : n);
   const float* slab = packed + (int64_t)tile * cap * kAttrDim;
 
-  float T = 1.0f;
-  float acc[CH];
+  float T[kCols], acc[CH][kCols];
 #pragma unroll
-  for (int c = 0; c < CH; ++c) acc[c] = 0.0f;
+  for (int i = 0; i < kCols; ++i) {
+    T[i] = 1.0f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) acc[c][i] = 0.0f;
+  }
 
-  for (int base = 0; base < n; base += kChunk) {
+  // composite entry e of the staged chunk into this thread's pixels
+  auto blend = [&](int e) {
+    const float4 b = s_box[e];
+    // the four tests in one predicate and one branch
+    if ((x[kCols - 1] < b.x) | (x[0] > b.y) | (y < b.z) | (y > b.w)) return;
+    const float4 k0 = s_ent[0][e];
+    const float4 k1 = s_ent[1][e];
+    const float c6[6] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y};
+    float q1, q0;
+    tile_row_terms(c6, y, &q1, &q0);
+    float p[kCols];
+    bool live = false;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      p[i] = row_power(c6[0], q1, q0, x[i]);
+      live = live || (p[i] >= kPowerCut);
+    }
+    if (!live) return;
+    float cl[4 * kSlots - 6];
+    cl[0] = k1.z;
+    cl[1] = k1.w;
+#pragma unroll
+    for (int q = 2; q < kSlots; ++q) {
+      const float4 kq = s_ent[q][e];
+      cl[4 * q - 6] = kq.x;
+      cl[4 * q - 5] = kq.y;
+      cl[4 * q - 4] = kq.z;
+      cl[4 * q - 3] = kq.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      float ar;
+      const float a = power_alpha(p[i], &ar);
+      const float w = a * T[i];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) acc[c][i] = acc[c][i] + cl[c] * w;
+      T[i] = T[i] - w;
+    }
+  };
+
+  for (int base = 0; base < n; base += kFwdChunk) {
     if (base > 0) __syncthreads();   // the previous chunk's readers are done
-    const int m = (n - base) < kChunk ? (n - base) : kChunk;
+    const int m = (n - base) < kFwdChunk ? (n - base) : kFwdChunk;
     if (tid < m) {
-      float r[kAttrDim], c6[6], mx, my;
+      float r[kAttrDim], v[4 * kSlots], mx, my;
       load_row(slab + (int64_t)(base + tid) * kAttrDim, r);
-      tile_coeffs(r, x_off, y_off, c6, &mx, &my);
+      tile_coeffs(r, x_off, y_off, v, &mx, &my);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) s_coef[k][tid] = c6[k];
+      for (int k = 6; k < 4 * kSlots; ++k)
+        v[k] = (k - 6 < CH) ? r[kR + k - 6] : 0.0f;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) s_col[c][tid] = r[kR + c];
+      for (int q = 0; q < kSlots; ++q)
+        s_ent[q][tid] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                                    v[4 * q + 3]);
+      s_box[tid] = entry_box(r, mx, my);
     }
     __syncthreads();
-    for (int e = 0; e < m; ++e) {
-      const float c6[6] = {s_coef[0][e], s_coef[1][e], s_coef[2][e],
-                           s_coef[3][e], s_coef[4][e], s_coef[5][e]};
-      float ar;
-      const float a = tile_alpha(c6, x, y, &ar);
-      const float w = a * T;
+    int e = 0;
+    for (; e + kFwdUnroll <= m; e += kFwdUnroll) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) acc[c] = acc[c] + s_col[c][e] * w;
-      T = T - w;
+      for (int u = 0; u < kFwdUnroll; ++u) blend(e + u);
     }
+    for (; e < m; ++e) blend(e);
   }
 
   const int64_t width = (int64_t)ncols * kTileW;
   const int64_t plane = (int64_t)nrows * kTileH * width;
-  const int64_t pix = (int64_t)(tr * kTileH + ty) * width + tc * kTileW
-                      + quarter * kQuarter + tx;
+  const int64_t pix = (int64_t)(tr * kTileH + row) * width + tc * kTileW
+                      + col0;
 #pragma unroll
-  for (int c = 0; c < CH; ++c) out[c * plane + pix] = acc[c];
-  tfin[pix] = T;
+  for (int c = 0; c < CH; ++c)
+    *reinterpret_cast<float4*>(out + c * plane + pix) =
+        make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+  *reinterpret_cast<float4*>(tfin + pix) = make_float4(T[0], T[1], T[2], T[3]);
 }
 
 template <int CH>
 int launch_fwd(const float* packed, const int32_t* counts, float* out,
                float* tfin, int cap, int nrows, int ncols,
                cudaStream_t stream) {
-  const dim3 block(kQuarter, kTileH);
   composite_tiles_fwd_kernel<CH>
-      <<<nrows * ncols * kQuarters, block, 0, stream>>>(
+      <<<nrows * ncols * kGroups, kFwdThreads, 0, stream>>>(
           packed, counts, out, tfin, cap, nrows, ncols);
   return (int)cudaGetLastError();
 }
@@ -249,19 +402,12 @@ int launch_fwd(const float* packed, const int32_t* counts, float* out,
 // tile, a warp per pixel row reducing ten terms for every pair, then 32
 // rows summed serially per entry); without the power cut 1.282-1.284.
 constexpr int kRows = 4;                   // pixel rows a thread owns
-constexpr int kGroupRows = 8;              // rows of a row group: one block
-constexpr int kGroups = kTileH / kGroupRows;   // blocks (partials) a tile
 constexpr int kBwdThreads = kTileW * kGroupRows / kRows;   // 256
 constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kWarpCols = 16;              // a warp: 16 columns x 8 rows
 constexpr int kBwdChunk = 64;              // slab entries staged per pass
 constexpr int kOutCh = 7;
 constexpr int kSums = 6 + kOutCh;          // moments, colour sums
 constexpr int kPartStride = 17;            // floats per (warp, entry)
-constexpr unsigned kFull = 0xffffffffu;
-// below this power expf gives < 1/255: alpha is exactly 0
-// (composite_tiles.py: POWER_CUT, pinned by a test)
-constexpr float kPowerCut = -5.6f;
 static_assert(kBwdThreads == 4 * kBwdChunk,
               "one thread per float4 of a chunk's slots");
 static_assert(kBwdWarps * kWarpCols == kTileW &&
@@ -505,13 +651,23 @@ extern "C" int composite_tiles_bwd(const float* packed, const int32_t* counts,
   return (int)cudaGetLastError();
 }
 
-// blocks: (2,) int32, receives the resident blocks per SM of K9 and of its
-// group pass on the current device. Returns cudaError_t.
+// blocks: (5,) int32, receives the resident blocks per SM of K9, of its
+// group pass and of K8 at 7, 4 and 3 channels on the current device.
+// Returns cudaError_t.
 extern "C" int composite_tiles_occupancy(int* blocks) {
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks[0], composite_tiles_bwd_kernel, kBwdThreads, 0);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks[1], combine_groups_kernel, 256, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[2], composite_tiles_fwd_kernel<7>, kFwdThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[3], composite_tiles_fwd_kernel<4>, kFwdThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[4], composite_tiles_fwd_kernel<3>, kFwdThreads, 0);
   return (int)e;
 }

@@ -42,12 +42,18 @@ K9 backward); on a CPU tensor they run `composite_tiles_plain` and
 `composite_tiles_bwd_plain`, which do the same float32 operations per pixel
 in the same order (one rounding per op, as the kernels are built with
 --fmad=false), so a kernel and its plain version differ only in the order
-of K9's per-entry sums over the tile's pixels. K9 skips a pair for a warp
-whose pixels all have a power below POWER_CUT: float32 exp there is below
-1/255, so alpha is exactly 0 in both versions and the pair changes
-nothing. The reference's `G_FWD` / `G_BWD` block sizes and
-`DIMO_FORCE_INTERPRET` are TPU tuning and debugging knobs and have no
-counterpart here.
+of K9's per-entry sums over the tile's pixels. The power's row terms
+(`_power`'s q1, q0) are formed once per row and entry, as K8 forms them
+for the COLS pixels of a row a thread owns. K8 skips an entry for a
+thread whose pixels all lie outside the entry's box (`entry_box`) or all
+have a power below POWER_CUT, K9 for a warp whose pixels all have a power
+below POWER_CUT: float32 exp there is below 1/255, so alpha is exactly 0
+in both versions and the pair changes nothing. That holds for finite
+colours: an entry with an inf or NaN colour gives NaN (inf x 0) at the
+pixels where its alpha is 0 in the plain versions, while K8 leaves the
+pixels it skips as they were. The reference's `G_FWD` /
+`G_BWD` block sizes and `DIMO_FORCE_INTERPRET` are TPU tuning and
+debugging knobs and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -63,10 +69,21 @@ from dimo_tpu_torch.ops.rasterizer.tiles import (
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
 OP_FLOOR = 1e-30      # a normal float32: 1e-38 would be flushed or denormal
-GROUPS = 4            # K9's row groups: blocks, and partials, a tile
-# below this power float32 exp is < 1/255, so alpha is exactly 0 (K9's
-# kPowerCut; ln(1/255) = -5.541)
+GROUPS = 4            # K8's and K9's row groups: blocks (K9: partials) a tile
+COLS = 4              # K8: pixel columns of one row a thread owns
+# below this power float32 exp is < 1/255, so alpha is exactly 0 (K8's and
+# K9's kPowerCut; ln(1/255) = -5.541)
 POWER_CUT = -5.6
+# K8's box of an entry (`entry_box`, the kernel's kBox* constants): the
+# power margin per unit of S and beyond it, the share of |ca cc| + cb^2
+# the determinant is lowered by, the factor and the pixels the half-widths
+# are widened by, and the share of |centre| added to them
+BOX_REL = 4e-6
+BOX_ABS = 1e-6
+BOX_DET = 1e-6
+BOX_GROW = 1.0001
+BOX_PAD = 1e-3
+BOX_FAR = 1e-6
 
 # launches of the CUDA kernels since the last reset: K8 per channel variant
 # and K9 ("bwd"); chip_smoke reads them
@@ -121,14 +138,55 @@ def _pixel_axes(ref: torch.Tensor):
     return x, y
 
 
-def _alpha(k: dict, j: int, x, y, live):
-    """(alpha, araw) of slot j at every pixel of every tile, (T, 32, 128);
-    alpha is 0 on the tiles whose count is <= j (`live` (T, 1, 1))."""
+def _power(k: dict, j: int, x, y):
+    """The power of slot j at every pixel of every tile, (T, 32, 128): the
+    row terms q1, q0 once per row, then Horner in x (the kernels'
+    `tile_row_terms` and `row_power`)."""
     e = lambda c: c[:, j, None, None]                          # noqa: E731
     q1 = e(k["cB"]) * y + e(k["cD"])                           # (T, 32, 1)
     q0 = (e(k["cC"]) * y + e(k["cE"])) * y + e(k["cF"])
-    power = (e(k["cA"]) * x + q1) * x + q0                     # (T, 32, 128)
-    ar = torch.exp(power)
+    return (e(k["cA"]) * x + q1) * x + q0                      # (T, 32, 128)
+
+
+def entry_box(packed: torch.Tensor, ncols: int) -> torch.Tensor:
+    """The box of every slab row, (T, C, 4) float32 (xlo, xhi, ylo, yhi) in
+    tile-local pixels, outside which the row's power lies below POWER_CUT:
+    K8's `entry_box` in its op order (the CPU's log and sqrt may differ
+    from the card's by an ulp, far inside BOX_GROW's widening). It is the
+    bounding box of the ellipse
+    where the exact quadratic lop - Q(x - mx, y - my) / 2 reaches
+    POWER_CUT - (BOX_REL S + BOX_ABS), S the sum of the magnitudes of the
+    power's terms over the tile, which bounds the expanded formula's
+    rounding five times over; the whole plane for a conic that is not
+    positive definite or a value that is not finite, and an empty box
+    where lop lies below that level."""
+    k = _coeffs(packed, ncols)
+    mx, my, ca, cb, cc = (k[n] for n in ("mx", "my", "ca", "cb", "cc"))
+    lop = torch.log(torch.clamp_min(k["op"], OP_FLOOR))
+    X, Y = float(TILE_W), float(TILE_H)
+    S = (0.5 * ca.abs() * X * X + cb.abs() * X * Y + 0.5 * cc.abs() * Y * Y
+         + ((ca * mx).abs() + (cb * my).abs()) * X
+         + ((cc * my).abs() + (cb * mx).abs()) * Y
+         + 0.5 * ca.abs() * mx * mx + 0.5 * cc.abs() * my * my
+         + (cb * mx * my).abs() + lop.abs())
+    dlo = (ca * cc - cb * cb) - BOX_DET * ((ca * cc).abs() + cb * cb)
+    h = lop - (POWER_CUT - (BOX_REL * S + BOX_ABS))
+    rx = (torch.sqrt(2.0 * h * cc / dlo) * BOX_GROW + BOX_PAD
+          + BOX_FAR * mx.abs())
+    ry = (torch.sqrt(2.0 * h * ca / dlo) * BOX_GROW + BOX_PAD
+          + BOX_FAR * my.abs())
+    box = torch.stack([mx - rx, mx + rx, my - ry, my + ry], dim=-1)
+    inf = torch.tensor(float("inf"), dtype=box.dtype, device=box.device)
+    empty = torch.stack([inf, -inf, inf, -inf])
+    box = torch.where((h > 0)[..., None], box, empty)
+    whole = ~((ca > 0) & (cc > 0) & (dlo > 0) & (S < 1e30))
+    return torch.where(whole[..., None], -empty, box)
+
+
+def _alpha(k: dict, j: int, x, y, live):
+    """(alpha, araw) of slot j at every pixel of every tile, (T, 32, 128);
+    alpha is 0 on the tiles whose count is <= j (`live` (T, 1, 1))."""
+    ar = torch.exp(_power(k, j, x, y))
     zero = torch.zeros((), dtype=ar.dtype, device=ar.device)
     cut = torch.where(ar >= ALPHA_EPS, torch.clamp_max(ar, ALPHA_MAX), zero)
     return torch.where(live, cut, zero), ar

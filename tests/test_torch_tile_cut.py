@@ -1,18 +1,21 @@
-"""The power cut of the tile compositor's backward (kernel K9), on the CPU.
+"""The power cut of the tile compositor (kernels K8 and K9), on the CPU.
 
 K9 skips a (pixel, slab entry) pair for a warp whose pixels all have a
-power below `composite_tiles.POWER_CUT`. That changes no bit of the result
-only if float32 exp there is below the 1/255 alpha cut, so that alpha is
-exactly 0, T is divided by exactly 1 and the pair adds exactly 0 to every
-sum. These tests pin the cut, its copy in `csrc/composite_tiles.cu`, and
-that the plain versions give such an entry no weight: the image and every
-other slot's gradient stay equal bit for bit.
+power below `composite_tiles.POWER_CUT`, K8 an entry for a thread whose
+four pixels all do. That changes no bit of the result only if float32 exp
+there is below the 1/255 alpha cut, so that alpha is exactly 0, T is
+divided by exactly 1 and the pair adds exactly 0 to every sum. These
+tests pin the cut and the layout's constants against their copies in
+`csrc/composite_tiles.cu`, and that the plain versions give such an
+entry no weight: the image at each channel count and every other slot's
+gradient stay equal bit for bit.
 """
 import math
 import re
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from dimo_tpu_torch.ops.rasterizer import composite_tiles as tct
@@ -36,10 +39,20 @@ def test_power_cut_gives_alpha_exactly_zero():
 
 
 def test_kernel_constants_match_the_wrapper():
-    cut = re.search(r"constexpr float kPowerCut = (-?[0-9.]+)f;", CSRC)
-    assert cut and float(cut.group(1)) == tct.POWER_CUT
-    rows = re.search(r"constexpr int kGroupRows = (\d+);", CSRC)
-    assert rows and ttiles.TILE_H // int(rows.group(1)) == tct.GROUPS
+    def const(name):
+        m = re.search(rf"constexpr (?:int|float) {name} = (-?[0-9.e-]+)f?;",
+                      CSRC)
+        assert m, name
+        return float(m.group(1))
+
+    assert const("kPowerCut") == tct.POWER_CUT
+    assert ttiles.TILE_H // const("kGroupRows") == tct.GROUPS
+    # K8: a thread owns COLS columns of one row, a block one row group
+    assert const("kCols") == tct.COLS
+    assert re.search(r"constexpr int kFwdThreads = kTileW \* kGroupRows / "
+                     r"kCols;", CSRC)
+    for name in ("REL", "ABS", "DET", "GROW", "PAD", "FAR"):
+        assert const("kBox" + name.title()) == getattr(tct, "BOX_" + name)
 
 
 def _slab(cap, seed):
@@ -82,3 +95,29 @@ def test_an_entry_below_the_cut_changes_nothing():
     assert ref[0].abs().amax(0)[:13].gt(0).all()
     assert torch.equal(torch.cat([got[0, :5], got[0, 6:]]), ref[0])
     assert not got[0, 5].any()
+
+
+@pytest.mark.parametrize("out_ch", [3, 4, 7])
+def test_an_entry_below_the_cut_leaves_its_pixels_bit_equal(out_ch):
+    live = _slab(12, 5)
+    counts = torch.tensor([[13]], dtype=torch.int32)
+    ref_out, ref_t = tct.composite_tiles_plain(
+        live[None], torch.tensor([[12]], dtype=torch.int32), 32, 128, out_ch)
+    x, y = tct._pixel_axes(live)
+    # a Gaussian far outside the tile (below the cut at every pixel), then
+    # one of 1 px whose power crosses the cut inside the tile
+    far, small = live[4].clone(), live[4].clone()
+    far[ttiles.A_MX] = 400.0
+    small[ttiles.A_MX], small[ttiles.A_MY] = 61.3, 17.6
+    small[ttiles.A_CA] = small[ttiles.A_CC] = 1.0
+    small[ttiles.A_CB] = 0.1
+    for extra, everywhere in ((far, True), (small, False)):
+        packed = torch.cat([live[:4], extra[None], live[4:]])[None]
+        power = tct._power(tct._coeffs(packed, 1), 4, x, y)[0]
+        below = power < tct.POWER_CUT
+        assert bool(below.all()) == everywhere and bool(below.any())
+        out, tfin = tct.composite_tiles_plain(packed, counts, 32, 128, out_ch)
+        same = (out == ref_out).all(0) & (tfin == ref_t)
+        assert bool(same[below].all())
+        if not everywhere:
+            assert not bool(same[~below].all())   # the entry shows above it

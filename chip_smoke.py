@@ -82,13 +82,33 @@
    after). Prints the step time and its CUDA-event split, and how far
    the loss and every gradient leaf of one step differ when computed twice
    from the same state (`step_spread`).
+6b. The same path with LPIPS on, as the reference trains by default: the
+   seeded random-VGG fallback at lambda 1000, its convolutions in float32;
+   one warm-up and 2 timed steps beside phase 6's, the split with an
+   `lpips` mark, the peak memory. Checks a finite loss, no skipped step, a
+   non-zero LPIPS term, every group with a learning rate moved, and K1 ch7
+   = K2 = K3 = K4 = 16 launches per step. Then LPIPS in TF32 against
+   float32 on one motion's 4 renders and their GT (`lpips_precision`):
+   prints the differences and whether TF32 meets LPIPS_TF32_DIST_REL and
+   LPIPS_TF32_GRAD_REL_L2 (it did not, so float32 ships), checks that
+   neither precision is changed by cuDNN's global TF32 flag at the forward
+   or at the backward (each pass sets its own), and that the step's LPIPS
+   gives the float32 distances bit for bit.
+6c. One test-time fine-tuning step, `trainable_groups={"latent_code"}`,
+   LPIPS on: only `latent.codes` moves, every other leaf stays bit-equal,
+   ARAP reads 0.
+   Then one LPIPS-on step inside `utils/diagnostics.profile_trace` (the
+   trace under `build/profile_lpips_step/`), and the card's busy share of
+   the step's window from the trace's kernel events.
 7. Drives the two-stage trainer at full width with the window readout
    route on (`tiles.WINDMA = 1`, so every render launches K7):
    `Trainer.train_dynamic` on synthetic videos rendered on the card at
    512^2 (4 motions x 3 views x 5 frames), 512 control points, latent 32,
    stage-1 capacity 8,192, 200 Gaussians per control point in stage 2
    (~100k), batch_size 2 (16 renders a step), every loss of
-   `configs/train_config.yaml` but LPIPS. The cadence keys are set so
+   `configs/train_config.yaml`, LPIPS as `main_train_dimo.py` sets it by
+   default (`get_lpips`: the seeded fallback, the trained weights being
+   absent; every step's LPIPS term must be non-zero). The cadence keys are set so
    that a densify that adds Gaussians, an opacity reset, an FPS anneal
    down to 512, `finish_s1`'s prune and checkpoint, `prepare_train_s2`,
    an s2 prune, mid-run snapshots, an interruption, a resume from the
@@ -117,9 +137,13 @@
    vs strip path (K1/K3) within 1e-4 on 99% of the pixels of image, alpha,
    depth and normal and within one alpha-cut flip on the rest, and within
    1e-3 relative L2 in every parameter's gradient.
-9. Prints a `kernels` JSON line (all nine kernels, K1 in both channel
-   variants and K8 in all three), the card's name and power limit, and
-   last the device line.
+9. Runs `bench_torch.py`'s functions on a fresh flagship scene with
+   BENCH_ROUNDS ch3 renders instead of its 500: the selfcheck (must pass),
+   the frames/s, and capacity 1024's delta against 4096; prints its line.
+10. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
+   both channel variants and K8 in all three; `launches` of K1 ch7, K2, K3
+   and K4 from phase 6b, the main path), the card's name and power limit,
+   and last the device line.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -130,7 +154,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -167,11 +190,18 @@ CROSS_GAUSSIANS = 25_000       # the two-compositor cross-check's scene
 CROSS_CAPACITY = 4096          # ... and its capacity: no list overflows
 SEQ_FRAMES = 21
 FPS_ROUNDS = 20
+BENCH_ROUNDS = 50              # bench_torch.py's functions (it runs 500)
 WIDTH = HEIGHT = 512
 CAPACITY = 1024
 TRAIN_SHAPE = (4, 2, 2)        # motions, views, frames (bench_train.py)
 TRAIN_STEPS = 2                # timed, after one warm-up
 TRAIN_START = 300              # depth/normal (> 200) and ARAP (< 2000) open
+# LPIPS's convolutions in TF32 against float32 on the same renders: what
+# TF32 would have had to meet to ship (the reference itself runs them in
+# bf16 on the TPU, whose unit roundoff, 2^-8, is 8x TF32's). It did not
+# (the gradient, `models/lpips.py`), so float32 ships
+LPIPS_TF32_DIST_REL = 1e-2     # max over images of |d_tf32 - d_f32| / d_f32
+LPIPS_TF32_GRAD_REL_L2 = 5e-2  # the input gradient, relative L2
 # the trainer phase: stage lengths and the cadence that makes every event
 # of the schedule happen within them (see main's phase 7)
 S1_ITERS, S2_ITERS = 60, 10
@@ -250,15 +280,6 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode != 0 or not r.stdout.strip():
-        fail(f"nvidia-smi: rc {r.returncode} {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1562,19 +1583,86 @@ def step_spread(step_fn, state, batch, lcfg) -> dict:
             "grads": grads}
 
 
+def lpips_precision(img, gt) -> dict:
+    """LPIPS (the seeded fallback) of renders `img` (b, 3, h, w) against
+    `gt`, and the gradient of its sum with respect to `img`, in TF32 and
+    in float32 on the card. Each is computed twice, the forward under
+    cuDNN's global TF32 flag off and the backward under it on, then the
+    other way round: each pass sets its own precision, so the two must
+    agree far closer than TF32 and float32 do (they may differ by the
+    order of an atomic add in cuDNN's backward). Also the forward and
+    forward + backward times (CUDA events, mean of 3)."""
+    import torch
+    from dimo_tpu_torch.models.lpips import LPIPS, seeded_lpips_params
+    from dimo_tpu_torch.utils.general import cudnn_tf32
+    net = LPIPS(seeded_lpips_params(0)).to(img.device)
+
+    def dist_grad(fwd_global: bool, bwd_global: bool):
+        x = img.clone().requires_grad_(True)
+        with cudnn_tf32(fwd_global):
+            d = net(x, gt)
+        with cudnn_tf32(bwd_global):
+            d.sum().backward()
+        return d.detach(), x.grad
+
+    def fwd_bwd():
+        x = img.clone().requires_grad_(True)
+        net(x, gt).sum().backward()
+
+    out = {}
+    for tf32 in (True, False):
+        net.tf32 = tf32
+        (d, g), (d2, g2) = dist_grad(False, True), dist_grad(True, False)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: net(img, gt), 3, warmup=1)
+        out["tf32" if tf32 else "float32"] = {
+            "dist": d, "grad": g, "fwd_ms": fwd,
+            "fwd_bwd_ms": cuda_ms(fwd_bwd, 3, warmup=1),
+            "flags_swapped_dist": float((d - d2).abs().max()),
+            "flags_swapped_grad": float((g - g2).abs().max())}
+    a, b = out["tf32"], out["float32"]
+    rel_d = float(((a["dist"] - b["dist"]).abs() / b["dist"].abs()).max())
+    return {"dist_rel": rel_d,
+            "dist_max": float((a["dist"] - b["dist"]).abs().max()),
+            "grad_rel_l2": rel_l2(a["grad"], b["grad"]),
+            "grad_max": float((a["grad"] - b["grad"]).abs().max()),
+            "dist_f32": b["dist"].tolist(),
+            **{f"{k}_{m}": v[m] for k, v in out.items()
+               for m in ("fwd_ms", "fwd_bwd_ms", "flags_swapped_dist",
+                         "flags_swapped_grad")}}
+
+
+def profiled_step(step_fn, state, batch, logdir: str) -> dict:
+    """One train step inside `diagnostics.profile_trace`, marked by a
+    `train_step` annotation that ends after a synchronize; the card's
+    busy share of that window from the trace's kernel events, and the
+    kernels that took the most device time."""
+    import torch
+    from dimo_tpu_torch.utils import diagnostics
+    with diagnostics.profile_trace(logdir):
+        with torch.profiler.record_function("train_step"):
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+    if not bool(torch.isfinite(m["loss"])) or int(m["nonfinite_grad"]):
+        fail(f"profiled step: loss {float(m['loss'])}")
+    return diagnostics.device_busy_share(
+        os.path.join(logdir, diagnostics.TRACE_FILE), "train_step")
+
+
 class Interrupted(Exception):
     """Raised by the trainer phase's logger to cut a run short."""
 
 
 def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
                   s2_iters: int, snapshot_every: int, interrupt_at: tuple,
-                  extra_steps=((299, 2), (449, 3))) -> dict:
+                  extra_steps=((299, 2), (449, 3)), lpips_fn=None) -> dict:
     """The two-stage trainer through `Trainer.train_dynamic`: a first run
     cut at `interrupt_at` (stage, step), a fresh Trainer that resumes from
     the last snapshot and finishes, the final checkpoint read back, then
     `extra_steps` = ((step to set, steps to take), ...) through
-    `train_step_once` at the later resolutions. Asserts every event of the
-    cadence from the trainer's state; returns counts and timings."""
+    `train_step_once` at the later resolutions, every step with
+    `lpips_fn`. Asserts every event of the cadence from the trainer's
+    state; returns counts and timings."""
     import torch
     from dimo_tpu_torch.io.synthetic import make_synthetic_videos
     from dimo_tpu_torch.models import gaussians as G
@@ -1608,26 +1696,24 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
         log = []          # (stage, step, resolution, loss, skipped, n_active,
         #                    max opacity, stamp)
 
-        def logger(trainer):
-            def log_fn(stage, step, m):
-                log.append((stage, step, render_resolution_for_step(step),
-                            float(m["loss"]), int(m["nonfinite_grad"]),
-                            int(G.num_active(trainer.state.aux)),
-                            float(G.get_opacity(trainer.state.params)
-                                  .detach().max()),
-                            stamp()))
-                if (stage, step) == interrupt_at and trainer is first:
-                    raise Interrupted
-            return log_fn
+        def log_fn(stage, step, m, trainer):
+            log.append((stage, step, render_resolution_for_step(step),
+                        float(m["loss"]), int(m["nonfinite_grad"]),
+                        int(G.num_active(trainer.state.aux)),
+                        float(G.get_opacity(trainer.state.params)
+                              .detach().max()),
+                        stamp(), float(m["lpips"])))
+            if (stage, step) == interrupt_at and trainer is first:
+                raise Interrupted
 
         t0 = time.time()
-        first = Trainer(opt, images, masks, meta, device=device)
-        first.log_fn = logger(first)
+        first = Trainer(opt, images, masks, meta, log_fn=log_fn,
+                        device=device)
         start = stamp()
         try:
             first.train_dynamic(s1_iters, s2_iters,
                                 snapshot_every=snapshot_every,
-                                snapshot_dir=snap)
+                                snapshot_dir=snap, lpips_fn=lpips_fn)
             fail("trainer: the first run was not interrupted")
         except Interrupted:
             pass
@@ -1669,10 +1755,11 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
 
         # a fresh Trainer resumes from the last snapshot and finishes
         done = (interrupt_at[1] - 1) // snapshot_every * snapshot_every
-        second = Trainer(opt, images, masks, meta, device=device)
-        second.log_fn = logger(second)
+        second = Trainer(opt, images, masks, meta, log_fn=log_fn,
+                         device=device)
         second.train_dynamic(s1_iters, s2_iters,
-                             snapshot_every=snapshot_every, snapshot_dir=snap)
+                             snapshot_every=snapshot_every, snapshot_dir=snap,
+                             lpips_fn=lpips_fn)
         resumed = [(e[0], e[1]) for e in log[cut:]]
         if resumed != [("s2", i) for i in range(done + 1, s2_iters + 1)]:
             fail(f"trainer: resumed run took steps {resumed}, expected s2 "
@@ -1703,7 +1790,7 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
         for at, count in extra_steps:
             second.step = at
             for _ in range(count):
-                second.train_step_once()
+                second.train_step_once(lpips_fn)
         if on_card:
             torch.cuda.synchronize()
         wall_s = time.time() - t0
@@ -1714,6 +1801,10 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
                                              float("inf")) or e[4]]
     if bad:
         fail(f"trainer: non-finite loss or skipped step at {bad}")
+    no_lpips = [(e[0], e[1]) for e in log if (e[8] > 0) != (lpips_fn is not None)]
+    if no_lpips:
+        fail(f"trainer: the LPIPS term is {'0' if lpips_fn else 'on'} at "
+             f"{no_lpips}")
     head = sum(e[3] for e in s1[:5]) / 5
     tail = sum(e[3] for e in s1[-5:]) / 5
     if not tail < head:
@@ -1733,6 +1824,7 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
                             for (st, res), v in per.items()},
             "loss_s1": (head, tail), "loss_s2_last": log[-1][3],
             "losses_s1": [round(e[3], 1) for e in s1],
+            "lpips_s1": (s1[0][8], s1[-1][8]), "lpips_s2_last": log[-1][8],
             "resumed_at": done + 1}
 
 
@@ -1753,14 +1845,17 @@ def main() -> None:
         from dimo_tpu_torch.train import optim
         from dimo_tpu_torch.train.step import (LossConfig, group_lrs,
                                                init_state, make_train_step)
+        from dimo_tpu_torch.models.lpips import get_lpips, random_init_lpips
+        import bench_torch
     except ImportError as e:
         fail(f"the port is not importable here ({e}): run from a checkout")
 
     dev = torch.device("cuda")
+    t_start = time.time()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"tf32_matmul={torch.backends.cuda.matmul.allow_tf32}")
-    card = card_line()
+    card = bench_torch.card_line()
     print("card:", card)
 
     # --- 1. build -------------------------------------------------------
@@ -2245,6 +2340,7 @@ def main() -> None:
         metrics.append(m)
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) / TRAIN_STEPS * 1e3
+    peak_no_lp = torch.cuda.max_memory_allocated() / 2**30
     train_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
                     "K3": cs.launches["bwd"], "K4": sg.bwd_launches}
     for i, m in enumerate(metrics):
@@ -2271,8 +2367,7 @@ def main() -> None:
           f"Gaussians, capacity {CAPACITY}, steps {TRAIN_START}.."
           f"{state.step}: first step {first_s:.2f} s, steady {step_ms:.1f} "
           f"ms/step (host clock, mean of {TRAIN_STEPS}); launches "
-          f"{train_launch}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{train_launch}; peak memory {peak_no_lp:.2f} GiB")
     print("train split (CUDA events, ms/step): "
           + " ".join(f"{k}={v:.1f}" for k, v in split.items())
           + f" total={sum(split.values()):.1f}")
@@ -2287,18 +2382,161 @@ def main() -> None:
               f"{k} {v[0]:.3g} ({v[1]:.3g})"
               for k, v in spread["grads"].items()))
 
+    # --- 6b. the same training path with LPIPS on (the seeded fallback) --
+    lpips_fn = random_init_lpips(0, dev)
+    step_lp = make_train_step(cfg, lcfg, "s2", WIDTH, HEIGHT, n_m, n_v, n_f,
+                              capacity=CAPACITY, lpips_fn=lpips_fn,
+                              use_guidance=True)
+    before = {k: v.detach().clone()
+              for k, v in optim.named_leaves(params).items()}
+    marks.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.launches = dict.fromkeys(cs.launches, 0)
+    sg.launches = 0
+    sg.bwd_launches = 0
+    metrics_lp = []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        marks.append([])
+        mark("start")
+        state, m = step_lp(state, batch, mark=mark)
+        metrics_lp.append(m)
+    torch.cuda.synchronize()
+    step_lp_ms = (time.time() - t0) / TRAIN_STEPS * 1e3
+    peak_lp = torch.cuda.max_memory_allocated() / 2**30
+    lp_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
+                 "K3": cs.launches["bwd"], "K4": sg.bwd_launches}
+    for i, m in enumerate(metrics_lp):
+        if (not bool(torch.isfinite(m["loss"])) or int(m["nonfinite_grad"])
+                or not float(m["lpips"]) > 0):
+            fail(f"LPIPS train step {i}: loss {float(m['loss'])}, lpips "
+                 f"{float(m['lpips'])}, nonfinite_grad "
+                 f"{int(m['nonfinite_grad'])}")
+    if any(v != want for v in lp_launch.values()) or cs.launches["ch3"]:
+        fail(f"LPIPS train launches {lp_launch} (ch3 {cs.launches['ch3']}), "
+             f"expected {want} each")
+    lrs = group_lrs(lcfg, state.step, "s2")
+    after = optim.named_leaves(params)
+    stuck = sorted({optim.leaf_group(k) for k, v in before.items()
+                    if v.numel() and lrs[optim.leaf_group(k)] > 0
+                    and torch.equal(v, after[k].detach())})
+    if stuck:
+        fail(f"LPIPS train: groups with a learning rate did not move: {stuck}")
+    split_lp = {}
+    for step_marks in marks[1:]:
+        for (_, a), (name, e) in zip(step_marks, step_marks[1:]):
+            split_lp[name] = (split_lp.get(name, 0.0)
+                              + a.elapsed_time(e) / TRAIN_STEPS)
+    last = metrics_lp[-1]
+    print(f"LPIPS train path (seeded random-VGG LPIPS, lambda "
+          f"{lcfg.lambda_lpips:g}, float32 convolutions): steady "
+          f"{step_lp_ms:.1f} ms/step against {step_ms:.1f} without LPIPS "
+          f"(host clock, mean of {TRAIN_STEPS} each, steps {state.step - 2}"
+          f"..{state.step}); launches {lp_launch}; peak memory "
+          f"{peak_lp:.2f} GiB (without LPIPS {peak_no_lp:.2f})")
+    print("LPIPS train split (CUDA events, ms/step; lpips = both towers' "
+          "forward and the GT's conversion): "
+          + " ".join(f"{k}={v:.1f}" for k, v in split_lp.items())
+          + f" total={sum(split_lp.values()):.1f}")
+    print("LPIPS train metrics (last step): " + " ".join(
+        f"{k}={float(last[k]):.5g}" for k in
+        ("loss", "lpips", "mse", "ssim_loss", "arap", "grad_norm")))
+    # TF32 against float32 on one motion's renders and their GT
+    with torch.no_grad():
+        knn_b = find_knn(params, aux)
+        per = n_v * n_f
+        imgs = torch.stack([render(
+            cfg, params, aux, batch["camera"][j], float(batch["times"][j]),
+            "s2", int(batch["latent_idx"][j]), WIDTH, HEIGHT, bg,
+            knn_cache=knn_b, capacity=CAPACITY)["image"] for j in range(per)])
+        gts = (batch["gt_image"][:per].float() / 255.0).permute(0, 3, 1, 2)
+    gts = gts.contiguous()
+    prec = lpips_precision(imgs, gts)
+    print(f"LPIPS precision ({per} renders at {WIDTH}^2 vs their GT): TF32 "
+          f"vs float32 distances {prec['dist_rel']:.3g} relative (float32 "
+          f"{prec['dist_f32']}), input gradient {prec['grad_rel_l2']:.3g} "
+          f"relative L2 ({prec['grad_max']:.3g} max); forward ms TF32 "
+          f"{prec['tf32_fwd_ms']:.2f} float32 {prec['float32_fwd_ms']:.2f}, "
+          f"forward + backward TF32 {prec['tf32_fwd_bwd_ms']:.2f} float32 "
+          f"{prec['float32_fwd_bwd_ms']:.2f}; global flag swapped: TF32 "
+          f"{prec['tf32_flags_swapped_dist']:.3g} / "
+          f"{prec['tf32_flags_swapped_grad']:.3g}, float32 "
+          f"{prec['float32_flags_swapped_dist']:.3g} / "
+          f"{prec['float32_flags_swapped_grad']:.3g} (distance / gradient "
+          "max |diff|)")
+    tf32_ok = (prec["dist_rel"] <= LPIPS_TF32_DIST_REL
+               and prec["grad_rel_l2"] <= LPIPS_TF32_GRAD_REL_L2)
+    print(f"LPIPS precision: TF32 {'within' if tf32_ok else 'outside'} "
+          f"{LPIPS_TF32_DIST_REL:g} (distances) / {LPIPS_TF32_GRAD_REL_L2:g} "
+          "(gradient); the step's LPIPS runs in float32")
+    with torch.no_grad():
+        shipped = lpips_fn(imgs, gts)
+    if not torch.equal(shipped, torch.tensor(prec["dist_f32"], device=dev)):
+        fail("the train step's LPIPS does not give the float32 distances")
+    for k in ("tf32", "float32"):
+        if (prec[f"{k}_flags_swapped_dist"] > 0.1 * prec["dist_max"]
+                or prec[f"{k}_flags_swapped_grad"] > 0.1 * prec["grad_max"]):
+            fail(f"LPIPS {k}: cuDNN's global TF32 flag changed the result "
+                 "(each pass should set its own precision)")
+
+    # --- 6c. one test-time fine-tuning step: only the latent codes train -
+    step_ft = make_train_step(cfg, lcfg, "s2", WIDTH, HEIGHT, n_m, n_v, n_f,
+                              capacity=CAPACITY, lpips_fn=lpips_fn,
+                              use_guidance=True,
+                              trainable_groups=frozenset({"latent_code"}))
+    before = {k: v.detach().clone()
+              for k, v in optim.named_leaves(params).items()}
+    state, m_ft = step_ft(state, batch)
+    after = optim.named_leaves(params)
+    moved = sorted(k for k, v in before.items()
+                   if not torch.equal(v, after[k].detach()))
+    if (moved != ["latent.codes"] or float(m_ft["arap"]) != 0.0
+            or int(m_ft["nonfinite_grad"]) or not float(m_ft["lpips"]) > 0):
+        fail(f"fine-tuning step: leaves that moved {moved} (want only "
+             f"latent.codes), arap {float(m_ft['arap'])}, lpips "
+             f"{float(m_ft['lpips'])}")
+    print(f"fine-tuning step (trainable_groups={{'latent_code'}}, LPIPS on): "
+          f"only latent.codes moved (max |step| "
+          f"{float((after['latent.codes'] - before['latent.codes']).abs().max()):.3g}), "
+          f"every other leaf bit-equal, arap {float(m_ft['arap'])}, loss "
+          f"{float(m_ft['loss']):.5g}")
+
+    # --- profile: one LPIPS-on step under torch.profiler ----------------
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "profile_lpips_step")
+    busy = profiled_step(step_lp, state, batch, trace_dir)
+    if busy["kernels"]:
+        print(f"profiled LPIPS step: the card was busy "
+              f"{busy['busy_share']:.4f} of the step's window "
+              f"({busy['busy_us'] / 1e3:.1f} of {busy['window_us'] / 1e3:.1f}"
+              f" ms, {busy['kernels']} kernels; trace "
+              f"{os.path.relpath(trace_dir)}); most device time: "
+              + "; ".join(f"{n[:60]} {us / 1e3:.2f} ms" for n, us in
+                          busy["by_name"][:12]))
+    else:
+        print("profiled LPIPS step: the trace holds no kernel events; the "
+              "busy share is not measured")
+
     # --- 7. the two-stage trainer, window readout route on ---------------
-    del state, batch, step_fn, before, after, metrics
+    del state, batch, step_fn, step_lp, step_ft, before, after, metrics
+    del metrics_lp, imgs, gts
     torch.cuda.empty_cache()
     tiles.WINDMA = 1
     print(f"trainer path: tiles.WINDMA = {tiles.WINDMA} (every render reads "
-          "its bin windows through K7)")
+          "its bin windows through K7); LPIPS as `main_train_dimo.py` sets "
+          "it by default: trained weights if present, else the seeded "
+          "fallback")
+    trainer_lpips = get_lpips("weights/lpips_vgg.npz", fallback="random",
+                              device=dev)
     cs.launches = dict.fromkeys(cs.launches, 0)
     sg.launches = sg.bwd_launches = wd.launches = 0
     tp = trainer_phase(
         dev, dict(num_motions=4, num_views=3, num_frames=5, ref_size=512,
                   n_gauss=60, seed=0), TRAINER_OPT, S1_ITERS, S2_ITERS,
-        SNAPSHOT_EVERY, INTERRUPT_AT)
+        SNAPSHOT_EVERY, INTERRUPT_AT, lpips_fn=trainer_lpips)
     tiles.WINDMA = 0
     tr_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
                  "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
@@ -2318,7 +2556,9 @@ def main() -> None:
           f"{tp['resumed_at']}; s1 loss {tp['loss_s1'][0]:.1f} -> "
           f"{tp['loss_s1'][1]:.1f} (mean of first/last 5), last s2 loss "
           f"{tp['loss_s2_last']:.1f}")
-    print(f"trainer s1 losses: {tp['losses_s1']}")
+    print(f"trainer s1 losses: {tp['losses_s1']}; LPIPS s1 "
+          f"{tp['lpips_s1'][0]:.4g} -> {tp['lpips_s1'][1]:.4g}, last s2 "
+          f"{tp['lpips_s2_last']:.4g}")
     print("trainer ms/step (CUDA events, cadence work included; mean, steps): "
           + " ".join(f"{k}={v[0]:.1f}x{v[1]}"
                      for k, v in tp["ms_per_step"].items())
@@ -2331,6 +2571,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     tile = tile_path_phase(dev)
     tl_launch = tile["launch"]
+
+    # --- bench: bench_torch.py's functions, fewer rounds ---------------
+    torch.cuda.empty_cache()
+    cs.launches = dict.fromkeys(cs.launches, 0)
+    scene = flagship_scene(device=dev)
+    with torch.no_grad():
+        knn = find_knn(scene[1], scene[2])
+    bench = bench_torch.result_line(
+        bench_torch.timed_fps(scene, knn, 3, BENCH_ROUNDS, CAPACITY),
+        bench_torch.timed_fps(scene, knn, 7, BENCH_ROUNDS // 2, CAPACITY),
+        bench_torch.timed_fps(scene, knn, 3, BENCH_ROUNDS // 2, 512),
+        bench_torch.capacity_delta(scene, knn),
+        bench_torch.scene_hash(scene[1]), bench_torch.selfcheck(dev), card)
+    bench_ch3 = cs.launches["ch3"]
+    if not bench["selfcheck_ok"]:
+        fail(f"bench selfcheck: {bench}")
+    if bench_ch3 != 2 + BENCH_ROUNDS + BENCH_ROUNDS // 2 + 2:
+        fail(f"bench: K1 ch3 launched {bench_ch3} times")
+    print(f"bench ({BENCH_ROUNDS} ch3 rounds, not bench_torch.py's "
+          f"{bench_torch.ROUNDS}): " + json.dumps(bench))
 
     # --- kernels line, card, device --------------------------------------
     def bound(ops: float, nbytes: float) -> dict:
@@ -2355,15 +2615,20 @@ def main() -> None:
                 "entries": r["entries"], "pixel_entry_pairs": r["pairs"],
                 "pairs_alpha_nonzero": r["live"]}
 
-    # launches: on the training path (this slice's main path) for the
-    # kernels it runs, with the serving path's counts beside them
+    # launches: on the training path with LPIPS on (this slice's main
+    # path) for the kernels it runs, with the serving path's and the
+    # LPIPS-off step's counts beside them
     ch7 = k1_row(7, "ch7")
-    ch7.update(launches=train_launch["K1 ch7"], launches_render=k1_launch["ch7"])
-    rows = [ch7, k1_row(3, "ch3"),
+    ch7.update(launches=lp_launch["K1 ch7"], launches_render=k1_launch["ch7"],
+               launches_no_lpips=train_launch["K1 ch7"])
+    ch3 = k1_row(3, "ch3")
+    ch3.update(launches_bench=bench_ch3)
+    rows = [ch7, ch3,
             {"name": "gather_small_cols_fwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/smallgather.cu",
              "replaces": "dimo_tpu/ops/smallgather.py:200",
-             "launches": train_launch["K2"], "launches_render": k2_launch,
+             "launches": lp_launch["K2"],
+             "launches_no_lpips": train_launch["K2"], "launches_render": k2_launch,
              "launches_trainer": tr_launch["K2"],
              "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
              **bound(0.0, k2_bytes), "library_ms": k2_lib,
@@ -2372,7 +2637,8 @@ def main() -> None:
             {"name": "composite_strips_bwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/composite_strips.cu",
              "replaces": "dimo_tpu/ops/rasterizer/composite_strips.py:394",
-             "launches": train_launch["K3"],
+             "launches": lp_launch["K3"],
+             "launches_no_lpips": train_launch["K3"],
              "launches_trainer": tr_launch["K3"], "max_abs_err": k3_err,
              "max_rel_lane_err": k3_rel, "ms": k3_ms, "plain_ms": k3_plain,
              **bound(k3_ops, k3_bytes), "library_ms": None,
@@ -2384,7 +2650,8 @@ def main() -> None:
             {"name": "gather_small_cols_bwd", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/smallgather.cu",
              "replaces": "dimo_tpu/ops/smallgather.py:212",
-             "launches": train_launch["K4"],
+             "launches": lp_launch["K4"],
+             "launches_no_lpips": train_launch["K4"],
              "launches_trainer": tr_launch["K4"], "max_abs_err": k4_err,
              "ms": k4_ms, "plain_ms": k4_plain, **bound(0.0, k4_bytes),
              "library_ms": k4_lib, "graph_ms": k4_graph,
@@ -2442,9 +2709,19 @@ def main() -> None:
              rows_row("K6", "gather_small_rows_bwd", 83),
              *(tile_row(f"K8 ch{ch}", f"composite_tiles_fwd_ch{ch}", 205)
                for ch in (7, 4, 3)), tile_bwd]
+    print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"fps_ch3": fps,
                       "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
                       "train_step_ms": step_ms, "train_split_ms": split,
+                      "train_peak_gib": peak_no_lp,
+                      "train_lpips_step_ms": step_lp_ms,
+                      "train_lpips_split_ms": split_lp,
+                      "train_lpips_peak_gib": peak_lp,
+                      "lpips_tf32_vs_float32": {
+                          k: v for k, v in prec.items() if k != "dist_f32"},
+                      "lpips_step_busy": {k: v for k, v in busy.items()
+                                          if k != "by_name"},
+                      "bench": bench,
                       "trainer_ms_per_step": tp["ms_per_step"],
                       "trainer_stage_s": tp["stage_s"],
                       "trainer_wall_s": tp["wall_s"],

@@ -13,11 +13,13 @@ Layers (bottom-up):
   ops/       plain-tensor math + kernel wrappers with autograd (rasterizer,
              LBS gather), image losses, ARAP, neighbours, and the JAX
              gradient conventions at kinks (`grad_conventions.py`)
-  models/    Gaussians, TimeNet, KNN-LBS deformation, the renderer
-  train/     per-group Adam and the stage-2 train step
+  models/    Gaussians, TimeNet, KNN-LBS deformation, the renderer,
+             LPIPS (VGG16)
+  train/     per-group Adam, the s1/s2 train steps, the two-stage trainer
   io/        weight and optimizer-state conversion from the JAX package's
-             numpy leaves
-  utils/     cameras (numpy), LR schedules, small helpers
+             numpy leaves, checkpoints, PLY, config, synthetic videos
+  utils/     cameras (numpy), LR schedules, diagnostics (step timer,
+             profiler trace, NaN checks), small helpers
 
 Entry points take `device=` and default to "cuda"; the CPU runs only
 where a caller asks for it (the tests do).
@@ -28,6 +30,8 @@ __version__ = "0.1.0"
 
 # The reference forces float32 matmuls (`dimo_tpu/__init__.py:33`); keep
 # TF32 off so fp32 products on the card stay fp32 (PyTorch's matmul default,
-# stated here so no other import can flip it silently). cuDNN is not on
-# this package's path.
+# stated here so no other import can flip it silently). cuDNN runs two
+# things, each at a precision it sets for its own calls and no global cuDNN
+# flag: SSIM's blur in float32 (`ops/image_losses.py`), LPIPS's VGG
+# convolutions in TF32, forward and backward (`models/lpips.py`).
 _torch.backends.cuda.matmul.allow_tf32 = False

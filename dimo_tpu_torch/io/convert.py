@@ -10,7 +10,9 @@ dict of numpy arrays under the JAX names, e.g.
      "active": ..., "c_active": ..., and optionally "max_radii2d",
      "xyz_grad_accum", "denom"}
 
-and `params_from_numpy` returns the port's objects. TimeNet weights are
+and `params_from_numpy` returns the port's objects; `lpips_params_from_numpy`
+does the same for the LPIPS-VGG weights (`dimo_tpu/models/lpips.py`'s dict,
+or an `.npz` with its keys). TimeNet weights are
 transposed from the JAX (fan_in, fan_out) layout into nn.Linear's
 (out, in). `train_state_from_numpy` also carries a JAX TrainState's Adam
 moments (laid out as the parameters) and step counts across, so both
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from dimo_tpu_torch.models import gaussians as G
+from dimo_tpu_torch.models.lpips import _VGG_PLAN, TAP_CHANNELS
 from dimo_tpu_torch.models.timenet import DEPTH, TimeNet, input_dim
 from dimo_tpu_torch.train import optim
 from dimo_tpu_torch.train.step import TrainState, init_state
@@ -128,3 +131,16 @@ def train_state_from_numpy(d: dict, opt: dict, step: int, device="cuda",
         step=torch.tensor(int(opt["step"]), dtype=torch.int32,
                           device=params.xyz.device))
     return state
+
+
+def lpips_params_from_numpy(d: dict, device="cuda") -> dict:
+    """{name: float32 tensor} of LPIPS-VGG weights under the reference's
+    keys (`conv{i}_w` (O, I, 3, 3), `conv{i}_b`, `lin{k}_w`), as
+    `models/lpips.LPIPS` takes them."""
+    dev = resolve_device(device)
+    want = ([f"conv{i}_{s}" for i in range(len(_VGG_PLAN)) for s in "wb"]
+            + [f"lin{k}_w" for k in range(len(TAP_CHANNELS))])
+    missing = [k for k in want if k not in d]
+    if missing:
+        raise ValueError(f"LPIPS weights lack {missing}")
+    return {k: _t(d[k], dev) for k in want}

@@ -1,7 +1,9 @@
 """Image-space losses of the train step (plain tensor ops, autograd).
 
-Counterpart of `ssim`, `edge_aware_smoothness`,
-`bilateral_normal_smoothness` and `psnr` of `dimo_tpu/ops/image_losses.py`.
+Counterpart of `dimo_tpu/ops/image_losses.py`: `ssim`,
+`edge_aware_smoothness`, `bilateral_normal_smoothness` and `psnr` (the
+train step's), and `tv_norm`, the Pearson depth losses, `l1_loss` and
+`mse_loss` (no caller yet, as in the reference).
 Images keep the reference's NHWC layout (B, H, W, C) at every function
 boundary, so the two packages are compared like with like; the blur works
 on NCHW inside.
@@ -10,7 +12,7 @@ Precision: SSIM subtracts blurred squares (sigma^2 = blur(x^2) - mu^2), a
 cancellation that TF32's ~3 decimal digits destroy. The reference forces
 float32; here the depthwise blur runs with cuDNN's TF32 off, in the
 forward and in the backward alike (the blur is its own adjoint), through a
-scoped `torch.backends.cudnn.flags` that restores every global flag.
+scoped `utils.general.cudnn_tf32(False)` that restores every global flag.
 Differences of pixels use `jnp.abs`'s slope +1 at 0 (flat depth and
 equal colours give exact zeros).
 """
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from dimo_tpu_torch.ops import grad_conventions as gc
+from dimo_tpu_torch.utils.general import cudnn_tf32
 
 
 def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -29,18 +32,12 @@ def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
-def _no_tf32():
-    b = torch.backends.cudnn
-    return b.flags(enabled=b.enabled, benchmark=b.benchmark,
-                   deterministic=b.deterministic, allow_tf32=False)
-
-
 def _blur_nchw(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     """Separable depthwise blur of (B, C, H, W) with SAME zero padding."""
     c, k = x.shape[1], win.shape[0]
     kh = win.reshape(1, 1, k, 1).expand(c, 1, k, 1)
     kw = win.reshape(1, 1, 1, k).expand(c, 1, 1, k)
-    with _no_tf32():
+    with cudnn_tf32(False):
         out = F.conv2d(x, kh, padding=(k // 2, 0), groups=c)
         return F.conv2d(out, kw, padding=(0, k // 2), groups=c)
 
@@ -104,6 +101,64 @@ def bilateral_normal_smoothness(normal: torch.Tensor,
     gny = gny * torch.exp(-3.0 * giy)
     return (torch.mean(torch.sqrt(1.0 + gnx ** 2))
             + torch.mean(torch.sqrt(1.0 + gny ** 2)))
+
+
+def tv_norm(values: torch.Tensor, losstype: str = "l2") -> torch.Tensor:
+    """Total-variation map (RegNeRF-style); values (B, H, W, C)."""
+    v00 = values[..., :-1, :-1, :]
+    v01 = values[..., :-1, 1:, :]
+    v10 = values[..., 1:, :-1, :]
+    if losstype == "l2":
+        return ((v00 - v01) ** 2) + ((v00 - v10) ** 2)
+    if losstype == "l1":
+        return gc.abs(v00 - v01) + gc.abs(v00 - v10)
+    raise ValueError(f"losstype must be l2 or l1 but is {losstype}")
+
+
+def pearson_depth_loss(render_depth: torch.Tensor,
+                       gt_depth: torch.Tensor) -> torch.Tensor:
+    """1 - Pearson correlation between flattened depths (population
+    standard deviations, as `jnp.std`)."""
+    src = render_depth - torch.mean(render_depth)
+    tgt = gt_depth - torch.mean(gt_depth)
+    src = src / (torch.std(src, correction=0) + 1e-6)
+    tgt = tgt / (torch.std(tgt, correction=0) + 1e-6)
+    return 1.0 - torch.mean(src * tgt)
+
+
+def pearson_patches(render_depth: torch.Tensor, gt_depth: torch.Tensor,
+                    x0, y0, box_p: int) -> torch.Tensor:
+    """Mean over patches of `pearson_depth_loss`; the patch i is the
+    box_p x box_p square at (x0[i], y0[i]) of the (H, W) depths."""
+    return torch.mean(torch.stack([
+        pearson_depth_loss(render_depth[x:x + box_p, y:y + box_p].reshape(-1),
+                           gt_depth[x:x + box_p, y:y + box_p].reshape(-1))
+        for x, y in zip(x0, y0)]))
+
+
+def local_pearson_depth_loss(render_depth: torch.Tensor,
+                             gt_depth: torch.Tensor,
+                             generator: torch.Generator | None = None,
+                             box_p: int = 128,
+                             p_corr: float = 0.5) -> torch.Tensor:
+    """Patchwise Pearson depth loss: random box_p-sized patches covering
+    about p_corr of the (H, W) image, the mean of their (1 - correlation).
+    The corners come from `generator` (the reference draws them from a
+    JAX key, so the patches are not the reference's)."""
+    h, w = render_depth.shape
+    n_corr = max(1, int(p_corr * (h // box_p) * (w // box_p)))
+    x0 = torch.randint(0, max(1, h - box_p), (n_corr,), generator=generator)
+    y0 = torch.randint(0, max(1, w - box_p), (n_corr,), generator=generator)
+    return pearson_patches(render_depth, gt_depth, x0.tolist(), y0.tolist(),
+                           box_p)
+
+
+def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean(gc.abs(pred - gt))
+
+
+def mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - gt) ** 2)
 
 
 def psnr(mse: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,17 @@
 """Neighbor queries on a dense distance matrix (torch).
 
-Counterpart of the parts of `dimo_tpu/ops/neighbors.py` that the render
-path, the model init and the train step use: `pairwise_sq_dists` (read by
+Counterpart of `dimo_tpu/ops/neighbors.py`: `pairwise_sq_dists` (read by
 `models/renderer.find_knn` and `ops/arap.py`), `mean_sq_dist_3nn` (read
 by `models/gaussians.init_model`), `chamfer_forward` (the stage-2
-guidance loss) and `farthest_point_sampling` (the stage-1 anneal of the
-control points, `models/gaussians.fps_anneal`).
+guidance loss), `farthest_point_sampling` (the stage-1 anneal of the
+control points, `models/gaussians.fps_anneal`), and `knn`, `knn_self`
+and `ball_query`, which have no caller yet, as in the reference.
+
+Self-exclusion (`knn_self`, `ball_query(exclude_self=True)`) sets the
+diagonal of the distance matrix to +inf. The reference adds
+`eye * inf` instead, which is NaN off the diagonal (0 * inf), so its
+distances there are NaN; this is a deliberate divergence (`ROADMAP.md`
+Queue C).
 """
 from __future__ import annotations
 
@@ -22,6 +28,55 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = torch.sum(y * y, dim=-1, keepdim=True).T          # (1, M)
     xy = x @ y.T                                           # (N, M)
     return gc.maximum(x2 - 2.0 * xy + y2, 0.0)
+
+
+def knn(queries: torch.Tensor, refs: torch.Tensor, k: int):
+    """k nearest refs of each query: euclidean (not squared) distances
+    (N, k) and int32 indices (N, k), nearest first. For k <= 8 by k
+    rounds of argmin (the first index on ties, as the reference's)."""
+    d2 = pairwise_sq_dists(queries, refs)
+    if k <= 8:
+        col = torch.arange(refs.shape[0], device=refs.device)[None]
+        ds, ids = [], []
+        for _ in range(k):
+            i = torch.argmin(d2, dim=1)
+            ds.append(gc.amin(d2, dim=1))
+            ids.append(i)
+            d2 = torch.where(col == i[:, None], torch.inf, d2)
+        return (torch.sqrt(gc.maximum(torch.stack(ds, 1), 0.0)),
+                torch.stack(ids, 1).to(torch.int32))
+    dist, idx = torch.topk(d2, k, dim=1, largest=False)
+    return torch.sqrt(gc.maximum(dist, 0.0)), idx.to(torch.int32)
+
+
+def _without_self(d2: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(d2.shape[0], d2.shape[1], dtype=torch.bool,
+                    device=d2.device)
+    return torch.where(eye, torch.inf, d2)
+
+
+def knn_self(points: torch.Tensor, k: int):
+    """k nearest neighbours of each point among the others: squared
+    distances (N, k) and int32 indices (N, k) (pytorch3d's
+    `knn_points(..., K=k + 1)[:, 1:]`)."""
+    d2 = _without_self(pairwise_sq_dists(points, points))
+    dist, idx = torch.topk(d2, k, dim=1, largest=False)
+    return dist, idx.to(torch.int32)
+
+
+def ball_query(queries: torch.Tensor, refs: torch.Tensor, k: int,
+               radius: float, exclude_self: bool = False):
+    """Up to k refs strictly within `radius` of each query, nearest first:
+    squared distances (N, k), 0 where padded, and int32 indices (N, k),
+    -1 where padded (pytorch3d's ball_query)."""
+    d2 = pairwise_sq_dists(queries, refs)
+    if exclude_self:
+        d2 = _without_self(d2)
+    masked = torch.where(d2 < radius * radius, d2, torch.inf)
+    dist, idx = torch.topk(masked, k, dim=1, largest=False)
+    ok = torch.isfinite(dist)
+    return (torch.where(ok, dist, torch.zeros_like(dist)),
+            torch.where(ok, idx, -1).to(torch.int32))
 
 
 def mean_sq_dist_3nn(points: torch.Tensor, chunk: int = 4096) -> torch.Tensor:

@@ -15,9 +15,9 @@ capacity), as closures), and the random streams of the split noise, the
 ARAP samples and the VAE noise come from `torch.Generator`s, so those
 numbers are not the JAX package's.
 
-Not here yet: LPIPS and data parallelism (both raise), the native
-double-buffered batch packer (the host path gathers with numpy), and the
-`trainer=` keyword the reference passes to its logger.
+LPIPS comes in as `lpips_fn` (`models/lpips.get_lpips`), as in the
+reference. Not here yet: data parallelism (raises) and the native
+double-buffered batch packer (the host path gathers with numpy).
 """
 from __future__ import annotations
 
@@ -97,7 +97,7 @@ class Trainer:
                  log_fn=None, device="cuda"):
         """images: uint8 (M, V, F, S, S, 3); masks: uint8 (M, V, F, S, S).
         meta: azimuths / elevations / input_videos. log_fn(stage, step,
-        metrics) is called after every step."""
+        metrics, trainer=self) is called after every step."""
         dp = int(opt.get("data_parallel", 1) or 1)
         if dp > 1:
             raise NotImplementedError(
@@ -230,15 +230,9 @@ class Trainer:
     # ------------------------------------------------------------------
     # step functions (cached per (stage, resolution, batch shape, capacity))
 
-    @staticmethod
-    def _refuse_lpips(lpips_fn):
-        if lpips_fn is not None:
-            raise NotImplementedError(
-                "LPIPS is not ported yet (ROADMAP.md Queue A, "
-                "`models/lpips.py`); train with lpips_fn=None")
-
     def get_step_fn(self, stage, res, shape, lpips_fn=None):
-        self._refuse_lpips(lpips_fn)
+        """The step for this key; `lpips_fn` is not part of the key (the
+        reference's cache): a run passes the same one to every step."""
         key = (stage, res, shape, self.tile_capacity)
         if key not in self._step_fns:
             lcfg = loss_config_from_opt(self.opt, stage)
@@ -247,6 +241,7 @@ class Trainer:
                 self.mcfg, lcfg, stage, res, res,
                 n_motions, n_views, n_frames,
                 capacity=self.tile_capacity,
+                lpips_fn=lpips_fn,
                 use_guidance=(stage >= "s2"))
         return self._step_fns[key]
 
@@ -289,7 +284,6 @@ class Trainer:
         train_dynamic again with the same directory continues from the
         last snapshot (the host batch RNG is reseeded, so the batch
         sequence after a resume differs from an uninterrupted run)."""
-        self._refuse_lpips(lpips_fn)
         if load_stage >= "s1":
             iters_s1 = 0
         if load_stage >= "s2":
@@ -361,7 +355,7 @@ class Trainer:
                   f"l2={float(metrics['grad_norm']):.2e}): update skipped "
                   "(params/moments untouched)")
         self._check_overflow(metrics)
-        self.log_fn(self.stage, self.step, metrics)
+        self.log_fn(self.stage, self.step, metrics, trainer=self)
 
         # checkpoint cadence
         if self.step % int(opt.save_inter) == 0:

@@ -8,6 +8,11 @@ backward kernels (K3, K4) for every render.
 
 Loss (the reference's `loss_fn`, same weights and gates):
   * per-image weighted MSE, per-motion SSIM and mask MSE, KL when `vae`;
+  * with an `lpips_fn`, `lambda_lpips` times the sum over motions of the
+    mean LPIPS distance of the motion's renders to their GT, one motion
+    at a time as the reference's `lax.map` does (its `jax.checkpoint`
+    bounds memory on 16 GB of HBM and changes no value; not used here);
+    the GT tower records no gradient;
   * edge-aware depth and bilateral normal smoothness, gated by
     step > depth/normal_reg_start_iter;
   * ARAP over `arap_t_samples` TimeNet times: in s2 on the control
@@ -16,6 +21,9 @@ Loss (the reference's `loss_fn`, same weights and gates):
     step > arap_start_iter_s1;
   * chamfer guidance of the deformed control points to the batch's
     stage-1 trajectories (`use_guidance`, s2).
+Test-time fine-tuning (`trainable_groups`, a set of optimizer groups):
+every other group gets learning rate 0, the latent groups follow the
+latent schedule, and ARAP is off.
 Then the non-finite guard (every gradient finite and sup|g| < 1e17,
 taken before the optional global-norm clip, as in the reference), and
 Adam on `where(grads_ok, new, old)`; a skipped step leaves parameters,
@@ -36,8 +44,6 @@ than the render is resized on the device as `jax.image.resize(...,
 "linear")` does it: half-pixel centres, and a triangle filter widened by
 the scale when it shrinks (`F.interpolate` with `antialias=True`,
 measured within 3e-7 of the reference). Same-size GT is used as it is.
-
-Not yet here: LPIPS, test-time latent fine-tuning (`trainable_groups`).
 """
 from __future__ import annotations
 
@@ -122,9 +128,12 @@ class LossConfig:
     arap_radius: float = 0.1
 
 
-def group_lrs(lcfg: LossConfig, step: int, stage: str) -> dict:
+def group_lrs(lcfg: LossConfig, step: int, stage: str,
+              trainable_groups: frozenset | None = None) -> dict:
     """{group: lr as a float32 value} at `step`: the reference's
-    update_learning_rate with its stage overrides."""
+    update_learning_rate with its stage overrides. With
+    `trainable_groups` (test-time fine-tuning), every group outside the
+    set gets 0 and the latent groups follow the latent schedule."""
     n = lcfg.position_lr_max_steps
     xyz_sched = schedules.expon_lr(lcfg.position_lr_init,
                                    lcfg.position_lr_final, max_steps=n)
@@ -159,6 +168,10 @@ def group_lrs(lcfg: LossConfig, step: int, stage: str) -> dict:
             "deform": def_sched(step), "deform_rot": def_sched(step),
             "c_xyz": c_sched(step), "c_radius": lcfg.c_radius_lr, "r": 0.0,
         }
+    if trainable_groups is not None:
+        latents = {"latent_code", "latent_code_mu", "latent_code_log_var"}
+        lrs = {k: ((lat_sched(step) if k in latents else lrs[k])
+                   if k in trainable_groups else 0.0) for k in lrs}
     return {k: f(v) for k, v in lrs.items()}
 
 
@@ -179,14 +192,19 @@ def make_train_step(
     n_views: int,
     n_frames: int,
     capacity: int = 512,
+    lpips_fn: Callable | None = None,
     use_guidance: bool = False,
+    trainable_groups: frozenset | None = None,
 ) -> Callable:
     """The step for a fixed (stage, resolution, batch shape):
     `train_step(state, batch, arap_times=None, mark=None)` updates `state`
     in place and returns (state, metrics). `arap_times` (arap_t_samples,)
     replaces the times drawn from `state.rng`; `mark(name)`, if given, is
-    called after the renders, the losses, the backward and the update
-    (e.g. to record CUDA events). `train_step.loss_fn` is the loss alone."""
+    called after the renders, the LPIPS term (with an `lpips_fn`; its
+    interval also holds the GT's conversion), the other losses, the
+    backward and the update (e.g. to record CUDA events).
+    `lpips_fn(img1, img2)` -> (b,) distances of (b, 3, h, w) images.
+    `train_step.loss_fn` is the loss alone."""
     if stage not in ("s1", "s2"):
         raise ValueError(f"stage must be 's1' or 's2', got {stage!r}")
     B = n_motions * n_views * n_frames
@@ -224,6 +242,14 @@ def make_train_step(
         gt_m = (gt_msk.to(torch.float32) / 255.0)[:, None]
         if tuple(gt_m.shape[2:]) != (height, width):
             gt_m = resize_linear(gt_m, height, width)
+        imgs_m, gt_mm = per_motion(imgs), per_motion(gt)
+        if lpips_fn is not None:
+            lp = torch.stack([torch.mean(lpips_fn(a, b))
+                              for a, b in zip(imgs_m, gt_mm)])
+            if mark is not None:
+                mark("lpips")
+        else:
+            lp = torch.zeros((n_motions,), device=dev)
 
         per_img_mse = torch.mean((imgs - gt) ** 2, dim=(1, 2, 3))   # (B,)
         mse_w = torch.as_tensor(batch["mse_w"], dtype=torch.float32,
@@ -231,11 +257,11 @@ def make_train_step(
         loss = lcfg.lambda_mse * torch.sum(mse_w * per_img_mse)
 
         nhwc = lambda x: x.permute(0, 2, 3, 1)               # noqa: E731
-        imgs_m, gt_mm = per_motion(imgs), per_motion(gt)
         ssim_losses = torch.stack([1.0 - L.ssim(nhwc(a), nhwc(b))
                                    for a, b in zip(imgs_m, gt_mm)])
         loss = loss + lcfg.lambda_ssim * torch.sum(ssim_losses)
-        lp = torch.zeros((n_motions,), device=dev)
+        if lpips_fn is not None:
+            loss = loss + lcfg.lambda_lpips * torch.sum(lp)
         mask_losses = torch.stack([torch.mean((a - b) ** 2) for a, b in
                                    zip(per_motion(masks), per_motion(gt_m))])
         loss = loss + lcfg.lambda_mask * torch.sum(mask_losses)
@@ -266,7 +292,7 @@ def make_train_step(
             loss = loss + gate * lcfg.lambda_bilateral * bilat_l
 
         arap_l = torch.zeros((), device=dev)
-        if lcfg.use_arap:
+        if lcfg.use_arap and trainable_groups is None:
             if stage == "s1":
                 gate = float(step > lcfg.arap_start_iter_s1)
                 base, node_valid = params.xyz, aux.active
@@ -355,7 +381,7 @@ def make_train_step(
                 grads = {k: g * scale for k, g in grads.items()}
             zero = torch.zeros((), device=sup_g.device)
             grads = {k: torch.where(grads_ok, g, zero) for k, g in grads.items()}
-            lr_g = group_lrs(lcfg, step, stage)
+            lr_g = group_lrs(lcfg, step, stage, trainable_groups)
             lrs = {k: lr_g[optim.leaf_group(k)] for k in leaves}
             new, new_opt = optim.update(leaves, grads, state.opt, lrs)
             for k, p in leaves.items():

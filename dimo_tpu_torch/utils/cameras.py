@@ -11,7 +11,10 @@ copy and imports nothing of the JAX package). Conventions:
     rectified w2c).
 
 `Camera` stays numpy; the rasterizer converts it to tensors on the
-device of the Gaussians (`ops/rasterizer/api.py`).
+device of the Gaussians (`ops/rasterizer/api.py`). `OrbitCamera` (the
+interactive camera; no caller yet, as in the reference) imports scipy
+when it is built. The reference's `stack_cameras` builds a JAX pytree;
+the port passes lists of cameras instead.
 """
 from __future__ import annotations
 
@@ -102,3 +105,78 @@ class Camera(NamedTuple):
             tan_fovx=np.float32(math.tan(fovx * 0.5)),
             tan_fovy=np.float32(math.tan(fovy * 0.5)),
         )
+
+
+class OrbitCamera:
+    """Interactive orbit camera (fov bookkeeping + orbit/scale/pan), the
+    reference's `OrbitCamera`; fovy given in degrees."""
+
+    def __init__(self, W, H, r=2, fovy=60, near=0.01, far=100):
+        from scipy.spatial.transform import Rotation
+        self._R = Rotation
+        self.W = W
+        self.H = H
+        self.radius = r
+        self.fovy = np.deg2rad(fovy)
+        self.near = near
+        self.far = far
+        self.center = np.array([0, 0, 0], dtype=np.float32)
+        self.rot = Rotation.from_matrix(np.eye(3))
+        self.up = np.array([0, 1, 0], dtype=np.float32)
+
+    @property
+    def fovx(self):
+        return 2 * np.arctan(np.tan(self.fovy / 2) * self.W / self.H)
+
+    @property
+    def campos(self):
+        return self.pose[:3, 3]
+
+    @property
+    def pose(self):
+        res = np.eye(4, dtype=np.float32)
+        res[2, 3] = self.radius
+        rot = np.eye(4, dtype=np.float32)
+        rot[:3, :3] = self.rot.as_matrix()
+        res = rot @ res
+        res[:3, 3] -= self.center
+        return res
+
+    @property
+    def view(self):
+        return np.linalg.inv(self.pose)
+
+    @property
+    def perspective(self):
+        y = np.tan(self.fovy / 2)
+        aspect = self.W / self.H
+        return np.array(
+            [[1 / (y * aspect), 0, 0, 0],
+             [0, -1 / y, 0, 0],
+             [0, 0, -(self.far + self.near) / (self.far - self.near),
+              -(2 * self.far * self.near) / (self.far - self.near)],
+             [0, 0, -1, 0]], dtype=np.float32)
+
+    @property
+    def intrinsics(self):
+        focal = self.H / (2 * np.tan(self.fovy / 2))
+        return np.array([focal, focal, self.W // 2, self.H // 2],
+                        dtype=np.float32)
+
+    @property
+    def mvp(self):
+        return self.perspective @ np.linalg.inv(self.pose)
+
+    def orbit(self, dx, dy):
+        side = self.rot.as_matrix()[:3, 0]
+        rotvec_x = self.up * np.radians(-0.05 * dx)
+        rotvec_y = side * np.radians(-0.05 * dy)
+        self.rot = (self._R.from_rotvec(rotvec_x)
+                    * self._R.from_rotvec(rotvec_y) * self.rot)
+
+    def scale(self, delta):
+        self.radius *= 1.1 ** (-delta)
+
+    def pan(self, dx, dy, dz=0):
+        self.center += 0.0005 * self.rot.as_matrix()[:3, :3] @ np.array(
+            [-dx, -dy, dz])

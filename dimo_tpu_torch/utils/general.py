@@ -8,6 +8,24 @@ def inverse_sigmoid(x):
     return torch.log(x / (1 - x))
 
 
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric -> (..., 6) upper triangle [xx,xy,xz,yy,yz,zz]."""
+    return torch.stack(
+        [cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+         cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
+
+
+def cudnn_tf32(allow: bool):
+    """A context in which cuDNN's convolutions run with TF32 allowed or
+    not, and which restores every global cuDNN flag when it exits. It
+    covers what runs inside it only: a backward that autograd runs later
+    sees the global flags, so a caller whose backward must keep the same
+    precision sets it there too (an `autograd.Function`)."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=b.benchmark,
+                   deterministic=b.deterministic, allow_tf32=allow)
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for an entry point's `device=` argument. Asking for
     CUDA on a machine without a card raises here, with a plain message,

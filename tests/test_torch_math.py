@@ -201,7 +201,8 @@ def _imports(path):
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in
+             ("chip_smoke.py", "bench_torch.py", "bench_train_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "dimo_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -216,7 +217,8 @@ def test_port_imports_neither_jax_nor_dimo_tpu():
     for name in ("train/loop.py", "train/step.py", "io/checkpoint.py",
                  "io/config.py", "io/ply.py", "io/synthetic.py", "presets.py",
                  "ops/rasterizer/windowdma.py", "ops/rasterizer/oracle.py",
-                 "ops/neighbors.py", "models/gaussians.py"):
+                 "ops/neighbors.py", "models/gaussians.py",
+                 "models/lpips.py", "utils/diagnostics.py"):
         assert name.replace("/", os.sep) in rel, name
     for path in files:
         for mod in _imports(path):

@@ -69,10 +69,9 @@ def _arap_times(rng_key):
                                          (8,)))
 
 
-@pytest.fixture(scope="module")
-def run():
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jdef, "gather_small_cols", _exact_jax_gather)
+def make_inputs():
+    """The scene (JAX objects and its numpy leaves `d`, TimeNet heads
+    seeded) and one batch in both packages' forms."""
     cfg_j, jp, ja, _ = _flagship_scene(n_gauss=512, n_cpts=32, latent_dim=8,
                                        seed=3)
     d = jax_to_numpy(jp, ja)
@@ -90,15 +89,29 @@ def run():
     lidx = np.repeat(np.arange(NM), NV * NF).astype(np.int32)
     guid = (d["c_xyz"][None] + rng.randn(B, 32, 3) * 0.01).astype(np.float32)
     mse_w = np.where(np.arange(B) % 2 == 0, 1.0, 0.5).astype(np.float32)
+    jbatch = {"camera": jcam.stack_cameras(cams), "times": jnp.asarray(times),
+              "latent_idx": jnp.asarray(lidx), "mse_w": jnp.asarray(mse_w),
+              "gt_image": jnp.asarray(gt), "gt_mask": jnp.asarray(gm),
+              "guidance": jnp.asarray(guid)}
+    tbatch = {"camera": [tcam.Camera(*c) for c in cams], "times": times,
+              "latent_idx": lidx, "mse_w": mse_w,
+              "gt_image": torch.from_numpy(gt), "gt_mask": torch.from_numpy(gm),
+              "guidance": torch.from_numpy(guid)}
+    cfg_t = TG.ModelConfig(sh_degree=0, latent_dim=8, num_latents=4,
+                           capacity=512, cpt_capacity=32)
+    return cfg_j, jp, ja, d, jbatch, cfg_t, tbatch
+
+
+@pytest.fixture(scope="module")
+def run():
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jdef, "gather_small_cols", _exact_jax_gather)
+    cfg_j, jp, ja, d, jbatch, cfg_t, tbatch = make_inputs()
 
     # --- JAX: make_train_step's loss_fn and gradients at STEP and STEP + 1,
     # each followed by the step's update (group_lrs -> build_lr_tree ->
     # optim.update: what its train_step does on a finite step), jitted
     # once for both steps
-    jbatch = {"camera": jcam.stack_cameras(cams), "times": jnp.asarray(times),
-              "latent_idx": jnp.asarray(lidx), "mse_w": jnp.asarray(mse_w),
-              "gt_image": jnp.asarray(gt), "gt_mask": jnp.asarray(gm),
-              "guidance": jnp.asarray(guid)}
     lcfg = jstep.LossConfig()
     jfn = jstep.make_train_step(cfg_j, lcfg, "s2", W, H, NM, NV, NF,
                                 capacity=CAP, use_guidance=True)
@@ -121,12 +134,6 @@ def run():
     mp.undo()
 
     # --- the port, from the same weights
-    cfg_t = TG.ModelConfig(sh_degree=0, latent_dim=8, num_latents=4,
-                           capacity=512, cpt_capacity=32)
-    tbatch = {"camera": [tcam.Camera(*c) for c in cams], "times": times,
-              "latent_idx": lidx, "mse_w": mse_w,
-              "gt_image": torch.from_numpy(gt), "gt_mask": torch.from_numpy(gm),
-              "guidance": torch.from_numpy(guid)}
     tfn = tstep.make_train_step(cfg_t, tstep.LossConfig(), "s2", W, H, NM, NV,
                                 NF, capacity=CAP, use_guidance=True)
     tp, ta = params_from_numpy(d, device="cpu")

@@ -153,7 +153,8 @@ def test_three_s1_steps_track_the_jax_trainer(data):
     tp, ta = params_from_numpy(jax_to_numpy(*j_start), device="cpu")
     tt.state = tstep.init_state(tp, ta, step=0)
     t_log = []
-    tt.log_fn = lambda s, st, m: t_log.append((s, st, float(m["loss"])))
+    tt.log_fn = lambda s, st, m, trainer: t_log.append(
+        (s, st, float(m["loss"])))
     for _ in range(3):
         tt.train_step_once()
     assert [(s, st) for s, st, _ in t_log] == [("s1", 1), ("s1", 2), ("s1", 3)]
@@ -298,7 +299,7 @@ def test_snapshot_resumes_in_a_fresh_trainer(data, tmp_path):
     # snapshot
     runner = port_trainer(data, **opt)
     log = []
-    runner.log_fn = lambda s, st, m: log.append((s, st))
+    runner.log_fn = lambda s, st, m, trainer: log.append((s, st))
     runner.train_dynamic(6, 3, snapshot_every=2, snapshot_dir=snap)
     assert log == [("s1", 5), ("s1", 6), ("s2", 1), ("s2", 2), ("s2", 3)]
     assert port_trainer(data, **opt).load_snapshot(snap) is None
@@ -342,7 +343,7 @@ def test_load_stage_overrides_a_stale_snapshot(data, tmp_path):
     tr.save_snapshot(snap, "s1", 2)
     runner = port_trainer(data, **opt)
     log = []
-    runner.log_fn = lambda s, st, m: log.append((s, st))
+    runner.log_fn = lambda s, st, m, trainer: log.append((s, st))
     runner.train_dynamic(6, 2, load_stage="s1", snapshot_every=2,
                          snapshot_dir=snap)
     assert log == [("s2", 1), ("s2", 2)]
@@ -358,9 +359,9 @@ def test_train_dynamic_runs_every_cadence_event(data, tmp_path):
                 densification_interval_s2=2, save_inter=4, capacity_s1=64)
     tr = TTrainer(opt, *data, device="cpu")
     events = []
-    tr.log_fn = lambda s, st, m: events.append(
-        (s, st, int(TG.num_active(tr.state.aux)), float(m["loss"]),
-         float(torch.sigmoid(tr.state.params.opacity.detach()).max())))
+    tr.log_fn = lambda s, st, m, trainer: events.append(
+        (s, st, int(TG.num_active(trainer.state.aux)), float(m["loss"]),
+         float(torch.sigmoid(trainer.state.params.opacity.detach()).max())))
     tr.train_dynamic(10, 4)
     counts = {(s, st): n for s, st, n, _, _ in events}
     assert all(np.isfinite(e[3]) for e in events)
@@ -405,10 +406,44 @@ def test_device_batch_matches_host_batch(s2_pair):
 
 
 def test_lpips_and_data_parallel_are_refused(data):
+    """Data parallelism is refused until `parallel/mesh.py` is ported.
+    LPIPS no longer is: `test_train_step_once_trains_with_lpips`."""
     with pytest.raises(NotImplementedError, match="data_parallel"):
         port_trainer(data, data_parallel=2)
+
+
+def test_train_step_once_trains_with_lpips(data):
+    """The seeded fallback through `train_step_once`: a finite step with a
+    non-zero LPIPS term, and the step function cached under the
+    reference's key, which leaves `lpips_fn` out."""
+    from dimo_tpu_torch.models.lpips import random_init_lpips
     tr = port_trainer(data)
-    for call in (lambda: tr.train_dynamic(1, 0, lpips_fn=lambda a, b: a),
-                 lambda: tr.train_step_once(lpips_fn=lambda a, b: a)):
-        with pytest.raises(NotImplementedError, match="LPIPS"):
-            call()
+    log = []
+    tr.log_fn = lambda s, st, m, trainer: log.append((m, trainer))
+    tr.prepare_train_s1()
+    lpips_fn = random_init_lpips(0, device="cpu")
+    for _ in range(2):
+        tr.train_step_once(lpips_fn=lpips_fn)
+    for m, trainer in log:
+        assert trainer is tr
+        assert int(m["nonfinite_grad"]) == 0 and torch.isfinite(m["loss"])
+        assert float(m["lpips"]) > 0
+    assert len(tr._step_fns) == 1
+    (stage, res, shape, capacity), = tr._step_fns
+    assert (stage, res, capacity) == ("s1", 128, tr.tile_capacity)
+    assert len(shape) == 3
+
+
+def test_train_dynamic_with_get_lpips(data, tmp_path, capsys):
+    """Both stages with LPIPS as `main_train_dimo.py` sets it by default:
+    `get_lpips` on an absent weights file gives the seeded fallback."""
+    from dimo_tpu_torch.models.lpips import get_lpips
+    tr = TTrainer(t_opt(save_path=str(tmp_path / "run")), *data, device="cpu")
+    log = []
+    tr.log_fn = lambda s, st, m, trainer: log.append(
+        (s, float(m["loss"]), float(m["lpips"])))
+    tr.train_dynamic(2, 1, lpips_fn=get_lpips(
+        str(tmp_path / "absent.npz"), device="cpu"))
+    assert "random-VGG perceptual fallback" in capsys.readouterr().out
+    assert [e[0] for e in log] == ["s1", "s1", "s2"]
+    assert all(np.isfinite(loss) and lp > 0 for _, loss, lp in log)

@@ -137,13 +137,43 @@
    vs strip path (K1/K3) within 1e-4 on 99% of the pixels of image, alpha,
    depth and normal and within one alpha-cut flip on the rest, and within
    1e-3 relative L2 in every parameter's gradient.
-9. Runs `bench_torch.py`'s functions on a fresh flagship scene with
+9. Drives the port's own CLIs (`dimo_tpu_torch/cli.py`, behind
+   `main_test_dimo_torch.py` and `main_train_dimo_torch.py`) the way a
+   user does, writing under `build/phase9/`. First one `render_sequence`
+   of a small scene (2,048 Gaussians) from one checkpoint on the card and
+   on the CPU, 5 orbit frames at 100^2 and 160^2: within 1 LSB + 1e-4
+   except at alpha-cut flips (`frames_close`). Then the flagship scene
+   (100,000 Gaussians, 512 control points, 4 latents, TimeNet's output
+   layers seeded so the control points move) saved as an s2 checkpoint
+   beside four empty motion folders, and the test CLI's body
+   (`cli.test_main`, `configs/test_config.yaml`: 800^2, 21 frames, 9
+   views, ref_size 576, capacity 512, batch 4) in each mode: default
+   (control points, trajectories, mosaics), interpolation, paper, fps
+   (500 rounds at 512^2), language (a seeded (1, 768) embedding through
+   the seeded projector), test_motion and test_unaligned_motion on one
+   synthetic motion made on the card, written as PNGs and read back
+   through `load_videos`, at a cut depth (FT_ITERS, FT_ITERS_A/B). Then
+   the train CLI's body on `input_folder=synthetic` (TRAIN_CLI_ITERS) and
+   its train_dynamic=False route. Counters zeroed before and read after
+   each mode and each train run; every launch count is asserted (default:
+   K1 ch7 = 42 M, K2 = 21 M; fps: K1 ch3 = K2 = 501; a fine-tuning step:
+   K1 ch7 = K3 = its renders, with K2 = K4 in s2). Every frame is finite,
+   every flagship s2 frame an object on white (mean 150-245, std > 10);
+   after test_motion only the latent moved, after test_unaligned_motion
+   only the latent and TimeNet. Video writers whose library is missing
+   are replaced by recorders (one printed line says which ran for real).
+   Prints each mode's wall seconds, render_sequence's ms per frame (CUDA
+   events), the fps harness's frames/s, ms per fine-tuning step at 128^2
+   / 256^2 / 512^2, and the test CLI's dataset upload.
+10. Runs `bench_torch.py`'s functions on a fresh flagship scene with
    BENCH_ROUNDS ch3 renders instead of its 500: the selfcheck (must pass),
-   the frames/s, and capacity 1024's delta against 4096; prints its line.
-10. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
+   the frames/s, and capacity 1024's delta against 4096; prints its line
+   and the fps harness's frames/s beside it.
+11. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
    both channel variants and K8 in all three; `launches` of K1 ch7, K2, K3
-   and K4 from phase 6b, the main path), the card's name and power limit,
-   and last the device line.
+   and K4 from phase 6b, the main path, and each kernel's launches in
+   every phase-9 run), the card's name and power limit, and last the
+   device line.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -222,6 +252,14 @@ TRAINER_OPT = dict(
     densification_interval_s2=8, densify_opacity_threshold_s2=0.045)
 SNAPSHOT_EVERY = 3             # s2 snapshots after 0, 3, 6, 9 iterations
 INTERRUPT_AT = ("s2", 5)       # the first run is cut here, after a snapshot
+# phase 9: the test CLI on the flagship checkpoint at test_config.yaml's
+# widths; the depth cuts (the reference's in brackets)
+PHASE9_MOTIONS = 4             # the flagship's latents
+FPS_HARNESS_ROUNDS = 500       # `run_test_fps`'s default, not cut
+FT_ITERS = 3                   # test_motion's fit (1000)
+FT_ITERS_A, FT_ITERS_B = 2, 2  # test_unaligned_motion's phases (400, 1000)
+FT_RES_STEPS = 3               # timed fine-tuning steps at each resolution
+TRAIN_CLI_ITERS = (6, 3)       # the train CLI's s1, s2 iterations (1500, 5000)
 
 
 def fail(msg: str) -> None:
@@ -1653,6 +1691,27 @@ class Interrupted(Exception):
     """Raised by the trainer phase's logger to cut a run short."""
 
 
+def stamp():
+    """A CUDA event recorded on the current stream."""
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def ms_between(a, b) -> float:
+    """Milliseconds on the card between two `stamp`s."""
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def free_cached() -> None:
+    """Synchronize and return the cached blocks (between runs)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
                   s2_iters: int, snapshot_every: int, interrupt_at: tuple,
                   extra_steps=((299, 2), (449, 3)), lpips_fn=None) -> dict:
@@ -1668,17 +1727,6 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
     from dimo_tpu_torch.models import gaussians as G
     from dimo_tpu_torch.presets import tiny_synthetic_opt
     from dimo_tpu_torch.train.loop import Trainer, render_resolution_for_step
-    on_card = torch.device(device).type == "cuda"
-
-    def stamp():
-        if on_card:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.time()
-
-    def ms_between(a, b) -> float:
-        return a.elapsed_time(b) if on_card else (b - a) * 1e3
 
     t0 = time.time()
     images, masks, meta = make_synthetic_videos(device=device, **synth_kw)
@@ -1791,8 +1839,7 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
             second.step = at
             for _ in range(count):
                 second.train_step_once(lpips_fn)
-        if on_card:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         wall_s = time.time() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1826,6 +1873,487 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
             "losses_s1": [round(e[3], 1) for e in s1],
             "lpips_s1": (s1[0][8], s1[-1][8]), "lpips_s2_last": log[-1][8],
             "resumed_at": done + 1}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by the names of the kernels line."""
+    from dimo_tpu_torch.ops import smallgather as sg
+    from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
+    from dimo_tpu_torch.ops.rasterizer import windowdma as wd
+    return {"K1 ch7": cs.launches["ch7"], "K1 ch3": cs.launches["ch3"],
+            "K1 ch4": cs.launches["ch4"], "K2": sg.launches,
+            "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
+            "K5": sg.rows_launches, "K6": sg.rows_bwd_launches,
+            "K7": wd.launches, "K8 ch7": ct.launches["ch7"],
+            "K8 ch4": ct.launches["ch4"], "K8 ch3": ct.launches["ch3"],
+            "K9": ct.launches["bwd"]}
+
+
+def zero_launch_counts() -> None:
+    from dimo_tpu_torch.ops import smallgather as sg
+    from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
+    from dimo_tpu_torch.ops.rasterizer import windowdma as wd
+    cs.launches = dict.fromkeys(cs.launches, 0)
+    ct.launches = dict.fromkeys(ct.launches, 0)
+    sg.launches = sg.bwd_launches = sg.rows_launches = sg.rows_bwd_launches = 0
+    wd.launches = 0
+
+
+def frames_close(got, ref, what: str) -> int:
+    """uint8 frames (H, W, 3): within 1 LSB + 1e-4 except on at most
+    max(2, 2e-4 H W) pixels of a frame, where an entry's alpha may flip at
+    the 1/255 cut (`tests/torch_parity.py::assert_close_except_cut_flips`).
+    Returns the number of such pixels over all frames."""
+    import numpy as np
+    tol = 1.0 / 255.0 + 1e-4
+    flips = 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape:
+            fail(f"{what} frame {i}: shape {g.shape} vs {r.shape}")
+        err = np.abs(g.astype(np.float64) - r.astype(np.float64)) / 255.0
+        bad = int((err > tol).any(axis=-1).sum())
+        limit = max(2, int(2e-4 * err.shape[0] * err.shape[1]))
+        if bad > limit or float(err.max()) > 2.0 / 255.0 + tol:
+            fail(f"{what} frame {i}: {bad} px over 1 LSB (limit {limit}), "
+                 f"max |err| {float(err.max()) * 255:.2f} LSB")
+        flips += bad
+    return flips
+
+
+def move_timenet(params, seed: int) -> None:
+    """Give TimeNet's zero-initialised output layers seeded weights, so the
+    control points move and a latent fit has a gradient."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    net = params.timenet
+    with torch.no_grad():
+        for lin in (net.pts_1, net.rot_1):
+            lin.weight.copy_(torch.from_numpy(
+                (0.02 * rng.randn(*lin.weight.shape)).astype(np.float32)))
+
+
+def motion_dirs(folder: str, n: int) -> str:
+    """A folder of n empty motion directories, motion_00.. (what the test
+    CLI's `load_info` lists when there is no info.json)."""
+    for m in range(n):
+        os.makedirs(os.path.join(folder, f"motion_{m:02d}"), exist_ok=True)
+    return folder
+
+
+def write_checkpoint(root: str, scene: tuple, n_motions: int, device) -> str:
+    """Save `scene` (cfg, params, aux, camera) as an s2 checkpoint under
+    root/run through `Trainer.save_checkpoint`, beside a folder of
+    `n_motions` empty motion directories (the test CLI's input_folder).
+    Returns the data folder."""
+    import numpy as np
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.train.loop import Trainer
+    from dimo_tpu_torch.train.step import init_state
+    data = motion_dirs(os.path.join(root, "data"), n_motions)
+    names = sorted(os.listdir(data))
+    tiny = np.zeros((n_motions, 1, 1, 8, 8, 3), np.uint8)
+    tr = Trainer(tiny_synthetic_opt(save_path=os.path.join(root, "run"),
+                                    num_views=1, num_frames=1),
+                 tiny, tiny[..., 0], {"input_videos": names, "azimuths": [0]},
+                 device=device)
+    cfg, params, aux, _ = scene
+    tr.mcfg, tr.state, tr.stage = cfg, init_state(params, aux), "s2"
+    tr.save_checkpoint("s2")
+    return data
+
+
+def small_sequences(root: str, device) -> dict:
+    """`render_sequence` of a small scene (2,048 Gaussians, 32 control
+    points, latent 8) from one s2 checkpoint on the card and on the CPU,
+    orbit camera, 5 frames at 100^2 and 160^2 (sides that are not powers
+    of two; 100 is not a multiple of the 32-px strip). Returns the largest
+    error in LSB and the flip pixels."""
+    import numpy as np
+    from dimo_tpu_torch import test_modes
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.train.loop import Trainer
+    scene = flagship_scene(2048, 32, 8, seed=3, device="cpu")
+    move_timenet(scene[1], 5)
+    write_checkpoint(root, scene, 2, "cpu")
+    tiny = np.zeros((2, 1, 1, 8, 8, 3), np.uint8)
+    meta = {"input_videos": ["motion_00", "motion_01"], "azimuths": [0]}
+    out = {}
+    for side in (100, 160):
+        seqs = []
+        for where in (device, "cpu"):
+            opt = tiny_synthetic_opt(
+                save_path=os.path.join(root, "run"), W=side, H=side,
+                num_views=1, num_frames=5, latent_code_dim=8, fovy=33.9,
+                tile_capacity=512)
+            tr = Trainer(opt, tiny, tiny[..., 0], meta, device=where)
+            tr.load_checkpoint("s2")
+            seqs.append(np.stack(test_modes.render_sequence(tr, 1, "s2",
+                                                            "circle")))
+        flips = frames_close(seqs[0], seqs[1], f"render_sequence {side}^2 "
+                             "card vs CPU")
+        err = int(np.abs(seqs[0].astype(int) - seqs[1].astype(int)).max())
+        if not seqs[1].std() > 10:
+            fail(f"render_sequence {side}^2: blank frames")
+        out[side] = (err, flips)
+    free_cached()
+    return out
+
+
+def write_motion_pngs(folder: str, images, masks) -> None:
+    """One motion's (V, F, S, S, 3) frames and (V, F, S, S) masks as RGBA
+    PNGs at folder/motion_00/view_XX/FF.png, `load_videos`' layout."""
+    import cv2
+    import numpy as np
+    for v in range(images.shape[0]):
+        d = os.path.join(folder, "motion_00", f"view_{v:02d}")
+        os.makedirs(d, exist_ok=True)
+        for f in range(images.shape[1]):
+            bgra = np.concatenate([images[v, f][..., ::-1],
+                                   masks[v, f][..., None]], -1)
+            cv2.imwrite(os.path.join(d, f"{f:02d}.png"), bgra)
+
+
+def test_modes_phase(dev, root: str) -> dict:
+    """Phase 9: the test CLI's body on the flagship checkpoint in every mode,
+    at `configs/test_config.yaml`'s widths, then the train CLI's body on
+    synthetic videos and its train_dynamic=False route. Launch counters
+    zeroed before and read after each mode; returns timings and counts."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from dimo_tpu_torch import cli, test_modes, viz
+    from dimo_tpu_torch.io import dataset as dataset_io
+    from dimo_tpu_torch.io.config import load_config
+    from dimo_tpu_torch.io.synthetic import make_synthetic_videos
+    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.train import optim
+    from dimo_tpu_torch.train.step import init_state, make_train_step
+    from dimo_tpu_torch.train.loop import Trainer, loss_config_from_opt
+    t_phase = time.time()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    test_cfg = os.path.join(here, "configs", "test_config.yaml")
+    train_cfg = os.path.join(here, "configs", "train_config.yaml")
+    opt = load_config(test_cfg, [])
+    n_v, n_f, side = int(opt.num_views), int(opt.num_frames), int(opt.W)
+    bs, ref = int(opt.batch_size), int(opt.ref_size)
+
+    # the card-vs-CPU sequences first, at a small size
+    small = small_sequences(os.path.join(root, "small"), dev)
+
+    # the flagship checkpoint: 100k Gaussians, 512 control points, 4 latents
+    scene = flagship_scene(device=dev)
+    move_timenet(scene[1], 1)
+    data = write_checkpoint(root, scene, PHASE9_MOTIONS, dev)
+    del scene
+    emb_path = os.path.join(root, "text_emb.npy")
+    np.save(emb_path, np.random.RandomState(0).randn(1, 768).astype(np.float32))
+
+    # the unseen motion: synthetic, made on the card, through PNGs
+    t0 = time.time()
+    m_img, m_msk, _ = make_synthetic_videos(
+        num_motions=1, num_views=n_v, num_frames=n_f, ref_size=ref, seed=7,
+        fovy_deg=float(opt.fovy), radius=float(opt.radius), device=dev)
+    motion_dir = os.path.join(root, "motion")
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "imageio", "matplotlib", "PIL")}
+    real = {"write_video": viz.write_video,
+            "plot_3d_tracks": viz.plot_3d_tracks,
+            "to_u8": test_modes._to_u8,
+            "render_sequence": test_modes.render_sequence,
+            "run_test_motion": test_modes.run_test_motion,
+            "run_test_unaligned_motion": test_modes.run_test_unaligned_motion,
+            "upload": Trainer._upload_dataset}
+    if not (have["cv2"] and have["PIL"]):
+        fail(f"phase 9 draws trajectories with OpenCV and PIL: {have}")
+    write_motion_pngs(motion_dir, m_img[0], m_msk[0])
+    loaded = dataset_io.load_videos(motion_dir, ["motion_00"], n_v, n_f, ref)
+    if not (np.array_equal(loaded[0][0], m_img[0]) and int(np.abs(
+            loaded[1][0].astype(int) - m_msk[0].astype(int)).max()) <= 1):
+        fail("the synthetic motion does not read back through load_videos")
+    motion_s = time.time() - t0
+
+    # writers: the real ones where their library is here, else recorders
+    # that keep the frames for the checks below
+    videos, frame_stats, seq_ms, ft, uploads = {}, {"n": 0}, [], {}, {}
+    mode_now = ["setup"]
+
+    def write_video(path, frames, fps=8):
+        frames = [np.asarray(f) for f in frames]
+        videos[os.path.basename(path)] = (len(frames), frames[0].shape)
+        if have["imageio"] or have["cv2"]:
+            real["write_video"](path, frames, fps)
+
+    def plot_3d_tracks(tracks, visibles=None, tracks_leave_trace=8,
+                       figsize=(5, 5)):
+        if have["matplotlib"]:
+            return real["plot_3d_tracks"](tracks, visibles, tracks_leave_trace,
+                                          figsize)
+        return np.zeros((tracks.shape[0], int(figsize[1] * 100),
+                         int(figsize[0] * 100), 3), np.uint8)
+
+    def to_u8(img):
+        if not bool(torch.isfinite(img).all()):
+            fail(f"phase 9 {mode_now[0]}: a frame is not finite")
+        frame_stats["n"] += 1
+        return real["to_u8"](img)
+
+    def render_sequence(tr, latent_index, stage, render_type="fixed",
+                        render_fn=None):
+        start = stamp()
+        frames = real["render_sequence"](tr, latent_index, stage, render_type,
+                                         render_fn)
+        end = stamp()
+        seq_ms.append((mode_now[0], int(tr.opt.W), len(frames),
+                       ms_between(start, end)))
+        flagship = not mode_now[0].startswith("train")
+        for i, f in enumerate(frames):
+            if flagship and stage >= "s2" and not (150 <= f.mean() <= 245
+                                                   and f.std() > 10):
+                fail(f"phase 9 {mode_now[0]}: frame {i} is not an object on "
+                     f"white (mean {f.mean():.1f}, std {f.std():.1f})")
+        return frames
+
+    def fit_wrapper(name, iters_kw, allowed, timenet_moves):
+        """The CLI's fine-tuning mode at a cut depth, with a CUDA-event
+        stamp per step; checks which leaves moved."""
+        def run(tr, images, masks, lpips_fn=None, log_fn=None, **_):
+            tr.load_checkpoint(tr.opt.test_stage)
+            before = {k: v.detach().clone()
+                      for k, v in optim.named_leaves(tr.state.params).items()}
+            stamps = [stamp()]
+            losses = []
+
+            def log(it, m):
+                stamps.append(stamp())
+                losses.append((float(m["loss"]), float(m["lpips"])))
+                if log_fn is not None:
+                    log_fn(it, m)
+            out = real[name](tr, images, masks, lpips_fn=lpips_fn,
+                             log_fn=log, **iters_kw)
+            torch.cuda.synchronize()
+            after = optim.named_leaves(tr.state.params)
+            moved = sorted(k for k, v in before.items()
+                           if v.shape != after[k].shape
+                           or not torch.equal(v, after[k].detach()))
+            if not ("latent.codes" in moved and all(allowed(k) for k in moved)
+                    and any(k.startswith("timenet.") for k in moved)
+                    == timenet_moves):
+                fail(f"phase 9 {name}: leaves that moved {moved}")
+            bad = [x for x in losses if not (np.isfinite(x[0]) and x[1] > 0)]
+            if bad or not np.isfinite(float(out["loss"])):
+                fail(f"phase 9 {name}: losses {losses}")
+            ft[name] = {"moved": moved, "losses": losses,
+                        "step_ms": [ms_between(a, b)
+                                    for a, b in zip(stamps, stamps[1:])],
+                        "tr": tr, "data": (images, masks), "lpips": lpips_fn}
+            return out
+        return run
+
+    def upload(tr):
+        """`Trainer`'s upload of the CLI's dataset, timed on the host clock
+        between two synchronizes."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        real["upload"](tr)
+        torch.cuda.synchronize()
+        uploads[mode_now[0]] = {
+            "bytes": int(tr.images.nbytes + tr.masks.nbytes),
+            "s": time.time() - t0, "on_card": tr._dev_images is not None}
+
+    patches = [(Trainer, "_upload_dataset", upload),
+               (viz, "write_video", write_video),
+               (viz, "plot_3d_tracks", plot_3d_tracks),
+               (test_modes, "_to_u8", to_u8),
+               (test_modes, "render_sequence", render_sequence),
+               (test_modes, "run_test_motion", fit_wrapper(
+                   "run_test_motion", {"iters": FT_ITERS},
+                   lambda k: k == "latent.codes", False)),
+               (test_modes, "run_test_unaligned_motion", fit_wrapper(
+                   "run_test_unaligned_motion",
+                   {"iters_a": FT_ITERS_A, "iters_b": FT_ITERS_B},
+                   lambda k: k.startswith(("latent.", "timenet.")), True))]
+    print("phase 9 writers: " + ", ".join(
+        f"{w} {'real' if ok else 'recorded (no ' + lib + ')'}" for w, ok, lib in (
+            ("write_video", have["imageio"] or have["cv2"], "imageio/cv2"),
+            ("plot_3d_tracks", have["matplotlib"], "matplotlib"),
+            ("trajectory_image/frames, interactive_3d_html", have["cv2"],
+             "cv2"), ("trajectory PNG", have["PIL"], "PIL")))
+          + f"; imageio {'present' if have['imageio'] else 'absent, so mp4s go through OpenCV'}")
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    base = ["--config", test_cfg, f"input_folder={data}",
+            f"save_path={os.path.join(root, 'run')}",
+            f"video_save_dir={os.path.join(root, 'videos')}"]
+    M, B = PHASE9_MOTIONS, (1 + min(bs, n_v - 1)) * min(bs, n_f)
+    zero = dict.fromkeys(launch_counts(), 0)
+
+    def want(**kw):
+        return {**zero, **{k.replace("_", " "): v for k, v in kw.items()}}
+
+    modes = [
+        ("default", [], want(K1_ch7=2 * n_f * M, K2=n_f * M)),
+        ("interpolation", ["test_interpolation=True"],
+         want(K1_ch7=2 * n_f, K2=n_f)),
+        ("paper", ["test_paper=True"], want(K1_ch7=3 * n_f * M, K2=2 * n_f * M)),
+        ("fps", ["test_fps=True"], want(K1_ch3=1 + FPS_HARNESS_ROUNDS,
+                                        K2=1 + FPS_HARNESS_ROUNDS)),
+        ("language", ["test_language=True", f"test_text_emb={emb_path}",
+                      "test_text_prompt=a person waves"],
+         want(K1_ch7=2 * n_f, K2=n_f)),
+        ("test_motion", ["test_motion=True", f"test_motion_data={motion_dir}"],
+         want(K1_ch7=B * FT_ITERS + 3 * n_f, K2=B * FT_ITERS + 2 * n_f,
+              K3=B * FT_ITERS, K4=B * FT_ITERS)),
+        ("test_unaligned_motion", ["test_unaligned_motion=True",
+                                   f"test_unaligned_motion_data={motion_dir}"],
+         want(K1_ch7=B * (FT_ITERS_A + FT_ITERS_B) + n_f,
+              K2=B * FT_ITERS_B + n_f, K3=B * (FT_ITERS_A + FT_ITERS_B),
+              K4=B * FT_ITERS_B))]
+    walls, launches, results = {}, {}, {}
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        for name, flags, expect in modes:
+            mode_now[0] = name
+            free_cached()
+            zero_launch_counts()
+            t0 = time.time()
+            results[name] = cli.test_main(base + flags, device=dev)
+            torch.cuda.synchronize()
+            walls[name] = time.time() - t0
+            launches[name] = launch_counts()
+            if launches[name] != expect:
+                fail(f"phase 9 {name}: launches {launches[name]}, expected "
+                     f"{expect}")
+            print(f"phase 9 {name}: {walls[name]:.2f} s, launches "
+                  + json.dumps({k: v for k, v in launches[name].items() if v}))
+
+        # fine-tuning step time by resolution (the fit's 128 / 256 / 512)
+        fit = ft["run_test_motion"]
+        tr = fit["tr"]
+        assemble = test_modes._device_batch_sampler(
+            tr, *fit["data"], tr.state.params.c_xyz.shape[0])
+        views = [0] + list(range(1, 1 + min(bs, n_v - 1)))
+        batch = assemble(views, list(range(min(bs, n_f))))
+        lcfg = loss_config_from_opt(tr.opt, "s2")
+        state = init_state(tr.state.params, tr.state.aux, step=0, seed=1)
+        res_ms = {}
+        for res in (128, 256, 512):
+            step = make_train_step(tr.mcfg, lcfg, "s2", res, res, 1,
+                                   len(views), min(bs, n_f),
+                                   capacity=int(tr.opt.tile_capacity),
+                                   lpips_fn=fit["lpips"],
+                                   trainable_groups=test_modes.LATENT_GROUPS)
+            state, m = step(state, batch)
+            start = stamp()
+            for _ in range(FT_RES_STEPS):
+                state, m = step(state, batch)
+            end = stamp()
+            if not np.isfinite(float(m["loss"])) or int(m["nonfinite_grad"]):
+                fail(f"phase 9 fine-tuning step at {res}^2: {float(m['loss'])}")
+            res_ms[res] = ms_between(start, end) / FT_RES_STEPS
+        del ft["run_test_motion"]["tr"], ft["run_test_unaligned_motion"]["tr"]
+        del tr, state, assemble, batch, fit
+
+        # the train CLI on synthetic videos, then its train_dynamic=False
+        # route (the default test on that run's checkpoint)
+        train = train_cli_runs(root, train_cfg, mode_now, want, dev)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    walls.update(train["walls"])
+    launches.update(train["launches"])
+    # every test mode uploads the CLI's zeros dataset, as the reference's
+    # Trainer does (it is under DEVICE_DATA_MAX_BYTES)
+    for name, _, _ in modes:
+        if not (name in uploads and uploads[name]["on_card"]):
+            fail(f"phase 9 {name}: the dataset was not uploaded: "
+                 f"{uploads.get(name)}")
+
+    by_mode = {}
+    for m, w, n, ms in seq_ms:
+        by_mode.setdefault(f"{m}@{w}", []).append(ms / n)
+    by_mode = {k: sum(v) / len(v) for k, v in by_mode.items()}
+    return {"walls": walls, "launches": launches, "small": small,
+            "fps": results["fps"], "res_ms": res_ms, "uploads": uploads,
+            "motion_s": motion_s, "frames": frame_stats["n"],
+            "videos": len(videos), "seq_ms_by_mode": by_mode,
+            "seq_ms_per_frame": by_mode[f"default@{side}"],
+            "ft": {k: {"moved": len(v["moved"]), "losses": v["losses"],
+                       "step_ms": v["step_ms"]} for k, v in ft.items()},
+            "train_gaussians": train["n_gaussians"],
+            "train_renders_per_step": train["per_step"],
+            "wall_s": time.time() - t_phase}
+
+
+def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
+                   device) -> dict:
+    """The train CLI's body on `input_folder=synthetic` at a cut depth, then
+    with train_dynamic=False on that run's checkpoint; launch counters
+    asserted for each."""
+    import torch
+    from dimo_tpu_torch import cli
+    from dimo_tpu_torch.io.config import load_config
+    from dimo_tpu_torch.train import optim
+    walls, launches = {}, {}
+    free_cached()
+    mode_now[0] = "train"
+    train_dir = os.path.join(root, "train_run")
+    targv = ["--config", train_cfg, "input_folder=synthetic",
+             f"save_path={train_dir}",
+             f"video_save_dir={os.path.join(root, 'train_videos')}",
+             f"iters_s1={TRAIN_CLI_ITERS[0]}", f"iters_s2={TRAIN_CLI_ITERS[1]}"]
+    topt = load_config(train_cfg, [])
+    tb = int(topt.batch_size)
+    n_sm = 2                                   # make_synthetic_videos' default
+    per_step = (min(2 * tb, n_sm) * min(tb, int(topt.num_views))
+                * min(tb, int(topt.num_frames)))
+    zero_launch_counts()
+    t0 = time.time()
+    tr = cli.train_main(targv + ["train_dynamic=True"], device=device)
+    torch.cuda.synchronize()
+    walls["train"] = time.time() - t0
+    launches["train"] = launch_counts()
+    n1, n2 = TRAIN_CLI_ITERS
+    expect = want(K1_ch7=per_step * (n1 + n2), K3=per_step * (n1 + n2),
+                  K2=per_step * n2, K4=per_step * n2)
+    if launches["train"] != expect:
+        fail(f"phase 9 train CLI: launches {launches['train']}, expected {expect}")
+    bad = [k for k, v in optim.named_leaves(tr.state.params).items()
+           if not bool(torch.isfinite(v).all())]
+    if tr.stage != "s2" or bad or not os.path.exists(
+            os.path.join(train_dir, "s2", "point_cloud.ply")):
+        fail(f"phase 9 train CLI: stage {tr.stage}, non-finite {bad}")
+    n_train = int(tr.state.aux.active.sum())
+    del tr
+    free_cached()
+    train_data = motion_dirs(os.path.join(root, "train_data"), n_sm)
+    mode_now[0] = "train_static"
+    zero_launch_counts()
+    t0 = time.time()
+    cli.train_main(targv + ["train_dynamic=False", f"input_folder={train_data}"],
+                   device=device)
+    torch.cuda.synchronize()
+    walls["train_static"] = time.time() - t0
+    launches["train_static"] = launch_counts()
+    tn_f = int(topt.num_frames)
+    expect = want(K1_ch7=2 * tn_f * n_sm, K2=tn_f * n_sm)
+    if launches["train_static"] != expect:
+        fail(f"phase 9 train CLI (train_dynamic=False): launches "
+             f"{launches['train_static']}, expected {expect}")
+    for name in (f"{os.path.basename(train_dir)}_motion_00_s2_fixed.mp4",
+                 "all_render_imgs.mp4"):
+        if not os.path.exists(os.path.join(root, "train_videos", name)):
+            fail(f"phase 9 train CLI (train_dynamic=False): no {name}")
+    for name in ("train", "train_static"):
+        print(f"phase 9 {name} CLI: {walls[name]:.2f} s, launches "
+              + json.dumps({k: v for k, v in launches[name].items() if v}))
+    return {"walls": walls, "launches": launches, "n_gaussians": n_train,
+            "per_step": per_step}
 
 
 def main() -> None:
@@ -2572,6 +3100,48 @@ def main() -> None:
     tile = tile_path_phase(dev)
     tl_launch = tile["launch"]
 
+    # --- 9. the test modes and the CLIs at full width --------------------
+    torch.cuda.empty_cache()
+    p9 = test_modes_phase(dev, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "phase9"))
+    print(f"phase 9 cuts (the reference's in brackets): test_motion "
+          f"{FT_ITERS} iterations (1000), test_unaligned_motion "
+          f"{FT_ITERS_A} + {FT_ITERS_B} (400 + 1000), the train CLI "
+          f"{TRAIN_CLI_ITERS[0]} s1 + {TRAIN_CLI_ITERS[1]} s2 iterations "
+          "(1500 + 5000); not cut: the flagship checkpoint (100,000 "
+          "Gaussians, 512 control points, 4 latents, latent 32), "
+          "test_config.yaml's 800^2, 21 frames, 9 views, ref_size 576, "
+          f"tile_capacity 512, batch_size 4, {FPS_HARNESS_ROUNDS} fps rounds "
+          "at 512^2, the synthetic motion's 9 views x 21 frames at 576^2, the "
+          "train CLI's train_config.yaml widths (2 synthetic motions)")
+    print("phase 9 card vs CPU render_sequence (small scene, 5 orbit "
+          "frames): " + "; ".join(
+              f"{k}^2 max {v[0]} LSB, {v[1]} px over 1 LSB"
+              for k, v in p9["small"].items()))
+    print("phase 9 wall seconds: " + " ".join(
+        f"{k}={v:.2f}" for k, v in p9["walls"].items())
+        + f"; phase {p9['wall_s']:.1f} s; synthetic motion made, written "
+        f"and read back {p9['motion_s']:.2f} s; {p9['frames']} frames "
+        f"checked finite, {p9['videos']} videos")
+    print("phase 9 render_sequence ms/frame (CUDA events, KNN once a "
+          "sequence, frames copied to the host): " + " ".join(
+              f"{k}={v:.2f}" for k, v in p9["seq_ms_by_mode"].items()))
+    ft_ms = p9["ft"]["run_test_motion"]["step_ms"]
+    print(f"phase 9 fine-tuning (latent only, LPIPS on, 1 x 5 x 4 = 20 "
+          f"renders a step): ms/step at 128^2 / 256^2 / 512^2 "
+          + " / ".join(f"{p9['res_ms'][r]:.1f}" for r in (128, 256, 512))
+          + f" (CUDA events, mean of {FT_RES_STEPS} after one warm-up); "
+          f"test_motion's own steps at 128^2: "
+          + ", ".join(f"{x:.1f}" for x in ft_ms) + " ms; losses "
+          + json.dumps({k: v["losses"] for k, v in p9["ft"].items()}))
+    up = p9["uploads"]["default"]
+    print(f"phase 9 dataset upload (`Trainer._upload_dataset` of the test "
+          f"CLI's zeros, {up['bytes'] / 2**30:.3f} GiB, host clock between "
+          f"synchronizes): default {up['s'] * 1e3:.1f} ms; by mode "
+          + " ".join(f"{k}={v['s'] * 1e3:.1f}"
+                     for k, v in p9["uploads"].items())
+          + f" ms; the fps harness (capacity 512) {p9['fps']:.2f} frames/s")
+
     # --- bench: bench_torch.py's functions, fewer rounds ---------------
     torch.cuda.empty_cache()
     cs.launches = dict.fromkeys(cs.launches, 0)
@@ -2591,6 +3161,12 @@ def main() -> None:
         fail(f"bench: K1 ch3 launched {bench_ch3} times")
     print(f"bench ({BENCH_ROUNDS} ch3 rounds, not bench_torch.py's "
           f"{bench_torch.ROUNDS}): " + json.dumps(bench))
+    print(f"serving frames/s at 512^2, ch3: the fps harness "
+          f"(`run_test_fps`, capacity 512, {FPS_HARNESS_ROUNDS} rounds) "
+          f"{p9['fps']:.2f}; bench_torch's timed_fps at capacity "
+          f"{CAPACITY} {bench['value']:.2f} and at 512 "
+          f"{bench['fps_cap512']:.2f} ({BENCH_ROUNDS} / {BENCH_ROUNDS // 2} "
+          f"rounds); {card}")
 
     # --- kernels line, card, device --------------------------------------
     def bound(ops: float, nbytes: float) -> dict:
@@ -2709,6 +3285,21 @@ def main() -> None:
              rows_row("K6", "gather_small_rows_bwd", 83),
              *(tile_row(f"K8 ch{ch}", f"composite_tiles_fwd_ch{ch}", 205)
                for ch in (7, 4, 3)), tile_bwd]
+    counter_of = {"composite_strips_fwd_ch7": "K1 ch7",
+                  "composite_strips_fwd_ch3": "K1 ch3",
+                  "gather_small_cols_fwd": "K2", "composite_strips_bwd": "K3",
+                  "gather_small_cols_bwd": "K4", "gather_windows": "K7",
+                  "gather_small_rows_fwd": "K5", "gather_small_rows_bwd": "K6",
+                  "composite_tiles_fwd_ch7": "K8 ch7",
+                  "composite_tiles_fwd_ch4": "K8 ch4",
+                  "composite_tiles_fwd_ch3": "K8 ch3",
+                  "composite_tiles_bwd": "K9"}
+    for row in rows:
+        if row["name"] not in counter_of:
+            fail(f"kernels line: row {row['name']} has no launch counter")
+        key = counter_of[row["name"]]
+        row["launches_test_modes"] = {m: c[key]
+                                      for m, c in p9["launches"].items()}
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"fps_ch3": fps,
                       "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
@@ -2733,7 +3324,12 @@ def main() -> None:
                       "tile_path_image_vs_capacity_4096": tile["capacity_delta"],
                       "tile_vs_strip_max_err": tile["cross_err"],
                       "tile_vs_strip_grad_rel_l2": tile["cross_grad"],
-                      "train_step_spread": spread}))
+                      "train_step_spread": spread,
+                      "test_modes_wall_s": p9["walls"],
+                      "test_modes_seq_ms_per_frame": p9["seq_ms_by_mode"],
+                      "test_fps_harness": p9["fps"],
+                      "finetune_step_ms": p9["res_ms"],
+                      "test_cli_uploads": p9["uploads"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -134,11 +134,7 @@ class Trainer:
         # the ground truth every step
         self._dev_images = self._dev_masks = None
         self._dev_cpts = None
-        if self.images.nbytes + self.masks.nbytes <= DEVICE_DATA_MAX_BYTES:
-            self._dev_images = torch.from_numpy(self._flat(self.images)).to(
-                self.device)
-            self._dev_masks = torch.from_numpy(self._flat(self.masks)).to(
-                self.device)
+        self._upload_dataset()
         self.tile_capacity = int(opt.get("tile_capacity", 512))
         self._overflow_strikes = 0
         self._last_b = 1
@@ -154,6 +150,15 @@ class Trainer:
                                    num_cpts=int(opt.num_cpts),
                                    device=self.device)
         self.state = init_state(params, aux, step=0, seed=self.seed)
+
+    def _upload_dataset(self) -> None:
+        """Copy the frames and masks to the device when together they fit
+        under DEVICE_DATA_MAX_BYTES."""
+        if self.images.nbytes + self.masks.nbytes <= DEVICE_DATA_MAX_BYTES:
+            self._dev_images = torch.from_numpy(self._flat(self.images)).to(
+                self.device)
+            self._dev_masks = torch.from_numpy(self._flat(self.masks)).to(
+                self.device)
 
     @staticmethod
     def _flat(frames: np.ndarray) -> np.ndarray:

@@ -88,6 +88,31 @@ class Camera(NamedTuple):
     tan_fovy: np.ndarray
 
     @staticmethod
+    def from_intrinsics(K: np.ndarray, w2c: np.ndarray, width: int, height: int,
+                        znear: float = 0.01, zfar: float = 100.0) -> "Camera":
+        """Build from pinhole intrinsics K (3,3) + world-to-camera (4,4)
+        (the Dynamic3DGaussians-style setup_camera: w2c already in the
+        rasterizer's +z-forward convention)."""
+        K = np.asarray(K, np.float32)
+        w2c = np.asarray(w2c, np.float32)
+        fx, fy = K[0, 0], K[1, 1]
+        cx, cy = K[0, 2], K[1, 2]
+        fovx = 2 * np.arctan(width / (2 * fx))
+        fovy = 2 * np.arctan(height / (2 * fy))
+        world_view = w2c.T.astype(np.float32)
+        proj = projection_matrix(znear, zfar, float(fovx), float(fovy)).T
+        # principal point offset folded into the projection
+        proj = proj.copy()
+        proj[2, 0] += (2 * cx - width) / width
+        proj[2, 1] += (2 * cy - height) / height
+        full_proj = (world_view @ proj).astype(np.float32)
+        campos = np.linalg.inv(w2c)[:3, 3].astype(np.float32)
+        return Camera(
+            world_view=world_view, full_proj=full_proj, campos=campos,
+            tan_fovx=np.float32(math.tan(fovx * 0.5)),
+            tan_fovy=np.float32(math.tan(fovy * 0.5)))
+
+    @staticmethod
     def from_c2w(c2w: np.ndarray, fovx: float, fovy: float,
                  znear: float = 0.01, zfar: float = 100.0) -> "Camera":
         w2c = np.linalg.inv(np.asarray(c2w, dtype=np.float64)).astype(np.float32)

@@ -202,7 +202,8 @@ def _imports(path):
 
 def _port_files():
     files = [os.path.join(REPO, f) for f in
-             ("chip_smoke.py", "bench_torch.py", "bench_train_torch.py")]
+             ("chip_smoke.py", "bench_torch.py", "bench_train_torch.py",
+              "main_train_dimo_torch.py", "main_test_dimo_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "dimo_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -218,7 +219,9 @@ def test_port_imports_neither_jax_nor_dimo_tpu():
                  "io/config.py", "io/ply.py", "io/synthetic.py", "presets.py",
                  "ops/rasterizer/windowdma.py", "ops/rasterizer/oracle.py",
                  "ops/neighbors.py", "models/gaussians.py",
-                 "models/lpips.py", "utils/diagnostics.py"):
+                 "models/lpips.py", "utils/diagnostics.py", "cli.py",
+                 "viz.py", "test_modes.py", "io/dataset.py", "io/colmap.py",
+                 "models/text.py"):
         assert name.replace("/", os.sep) in rel, name
     for path in files:
         for mod in _imports(path):
@@ -227,9 +230,10 @@ def test_port_imports_neither_jax_nor_dimo_tpu():
 
 
 def test_port_needs_no_optional_package_at_import():
-    """PyYAML, OpenCV and tensorboardX may be missing on the machine with
-    the card: no module of the port (nor `chip_smoke.py`) imports them at
-    module level, so importing the trainer never needs them."""
+    """PyYAML, OpenCV, tensorboardX, imageio, matplotlib, PIL and
+    transformers may be missing on the machine with the card: no module of
+    the port (nor `chip_smoke.py` or the CLIs) imports them at module
+    level, so importing the trainer or the test modes never needs them."""
     for path in _port_files():
         tree = ast.parse(open(path).read(), path)
         for node in tree.body:
@@ -237,8 +241,9 @@ def test_port_needs_no_optional_package_at_import():
                     else [node.module or ""] if isinstance(node, ast.ImportFrom)
                     else [])
             for mod in mods:
-                assert mod.split(".")[0] not in ("yaml", "cv2", "tensorboardX",
-                                                 "triton"), (path, mod)
+                assert mod.split(".")[0] not in (
+                    "yaml", "cv2", "tensorboardX", "triton", "imageio",
+                    "matplotlib", "PIL", "transformers"), (path, mod)
 
 
 def test_config_and_preset_are_the_reference_ones(tmp_path):

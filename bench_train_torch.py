@@ -12,8 +12,10 @@ is timed alone (`compile_s`: the port compiles nothing, so it is the
 first step's seconds), then `--steps` steps on the host clock, ending in
 a synchronize. `--lpips` adds the seeded random-VGG LPIPS
 (`random_init_lpips(0)`), as the reference's script does. `--out` writes
-an artifact with `train_bench.json`'s keys; the host batch keys are null
-(the native batch packer is not ported) and `backend` is "cuda".
+an artifact with `train_bench.json`'s keys, `backend` "cuda".
+`--packer_probe` also times the trainer's host batch assembly, the native
+packer against numpy's gather (`host_batch_packer_ms` /
+`host_batch_numpy_ms`; null without it).
 
 It needs a card: without one it raises before it prints anything.
 """
@@ -42,34 +44,66 @@ def parse_args(argv=None):
                     help="enable LPIPS with random-init weights (cost bench)")
     ap.add_argument("--out", default="",
                     help="write a JSON artifact with train_bench.json's keys")
+    ap.add_argument("--packer_probe", action="store_true",
+                    help="also time host batch assembly packer vs numpy")
     return ap.parse_args(argv)
 
 
-def make_batch(params, shape, res: int, device) -> dict:
-    """`scripts/bench_train.py`'s batch: cameras at RandomState(0)
-    azimuths, radius 2, fov 33.9 deg; times, motion-major latent
-    indices, unit MSE weights, random uint8 GT at 512^2, zero guidance."""
-    from dimo_tpu_torch.utils import cameras
-    n_m, n_v, n_f = shape
-    b = n_m * n_v * n_f
+def packer_probe(n_views: int, n_frames: int, device, ref_size: int = 512,
+                 iters: int = 30) -> tuple:
+    """ms per `Trainer.sample_batch` with the dataset on the host: the
+    native double-buffered packer, then numpy's gather (the reference's
+    `_packer_probe`: 4 motions of random uint8 frames at ref_size,
+    batch_size 2). The dataset is kept on the host (`DIMO_DEVICE_DATA=0`),
+    since it is small enough to live on the card, where neither path runs;
+    each call ends when its frames are on the device."""
+    import os
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.train.loop import Trainer
+
+    m, v, f = 4, n_views, n_frames
     rng = np.random.RandomState(0)
-    fov = float(np.deg2rad(33.9))
-    cams = [cameras.Camera.from_c2w(
-        cameras.orbit_camera(0, rng.uniform(0, 360), 2.0), fov, fov)
-        for _ in range(b)]
-    dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return {
-        "camera": cams,
-        "times": rng.rand(b).astype(np.float32),
-        "latent_idx": np.repeat(np.arange(n_m), n_v * n_f).astype(np.int32),
-        "mse_w": torch.ones(b, device=device),
-        "gt_image": dev(rng.randint(0, 255, (b, res, res, 3), np.uint8)),
-        "gt_mask": dev(rng.randint(0, 255, (b, res, res), np.uint8)),
-        "guidance": torch.zeros((b, params.c_xyz.shape[0], 3), device=device),
-    }
+    images = rng.randint(0, 255, (m, v, f, ref_size, ref_size, 3), np.uint8)
+    masks = rng.randint(0, 255, (m, v, f, ref_size, ref_size), np.uint8)
+    meta = {"input_videos": [f"m{i}" for i in range(m)],
+            "azimuths": list(np.linspace(0, 360, v, endpoint=False)),
+            "elevations": [0.0] * v}
+    opt = tiny_synthetic_opt(batch_size=2, num_views=v, num_frames=f,
+                             ref_size=ref_size)
+    held = os.environ.get("DIMO_DEVICE_DATA")
+    os.environ["DIMO_DEVICE_DATA"] = "0"
+    try:
+        tr = Trainer(opt, images, masks, meta, device=device)
+    finally:
+        if held is None:
+            os.environ.pop("DIMO_DEVICE_DATA")
+        else:
+            os.environ["DIMO_DEVICE_DATA"] = held
+
+    def loop():
+        tr.sample_batch()                      # warm: the first submit
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            tr.sample_batch()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) / iters * 1000
+
+    packer_ms = loop()
+    if tr._packer is None:
+        raise RuntimeError("the native batch packer did not load")
+    tr._packer.close()
+    tr._packer = None
+    tr._packer_b = len(tr._sample_meta()["times"])   # pins numpy's gather
+    tr._pending_meta = None
+    return packer_ms, loop()
 
 
-def artifact(args, step_s: float, first_s: float) -> dict:
+def artifact(args, step_s: float, first_s: float,
+             packer_ms: float | None = None,
+             numpy_ms: float | None = None) -> dict:
     """The `--out` record: `train_bench.json`'s keys."""
     shape = [int(x) for x in args.shape.split(",")]
     return {
@@ -78,14 +112,14 @@ def artifact(args, step_s: float, first_s: float) -> dict:
         "tile_capacity": args.capacity, "lpips": bool(args.lpips),
         "arap": not args.no_arap, "guidance": not args.no_guidance,
         "compile_s": first_s,
-        "host_batch_packer_ms": None, "host_batch_numpy_ms": None,
+        "host_batch_packer_ms": packer_ms, "host_batch_numpy_ms": numpy_ms,
         "backend": "cuda",
     }
 
 
 def main(argv=None) -> dict:
     from dimo_tpu_torch.models.lpips import random_init_lpips
-    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.scenes import flagship_scene, train_batch
     from dimo_tpu_torch.train.step import (LossConfig, init_state,
                                            make_train_step)
     from dimo_tpu_torch.utils.general import resolve_device
@@ -95,7 +129,7 @@ def main(argv=None) -> dict:
     cfg, params, aux, _ = flagship_scene(n_gauss=args.n_gauss, device=dev)
     state = init_state(params, aux, step=0)
     shape = tuple(int(x) for x in args.shape.split(","))
-    batch = make_batch(params, shape, args.res, dev)
+    batch = train_batch(params, shape, args.res, dev)
     lcfg = LossConfig(
         use_arap=not args.no_arap,
         add_depth=not args.no_smooth, add_normal=not args.no_smooth,
@@ -119,7 +153,12 @@ def main(argv=None) -> dict:
     print(f"steady step: {dt * 1000:.1f} ms  ({1.0 / dt:.2f} it/s)  "
           f"res={args.res} B={int(np.prod(shape))} N={args.n_gauss} "
           f"lpips={bool(args.lpips)}")
-    out = artifact(args, dt, first_s)
+    packer_ms = numpy_ms = None
+    if args.packer_probe:
+        packer_ms, numpy_ms = packer_probe(shape[1], shape[2], dev)
+        print(f"host batch assembly: packer {packer_ms:.2f} ms / "
+              f"numpy {numpy_ms:.2f} ms")
+    out = artifact(args, dt, first_s, packer_ms, numpy_ms)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -165,15 +165,40 @@
    Prints each mode's wall seconds, render_sequence's ms per frame (CUDA
    events), the fps harness's frames/s, ms per fine-tuning step at 128^2
    / 256^2 / 512^2, and the test CLI's dataset upload.
-10. Runs `bench_torch.py`'s functions on a fresh flagship scene with
+10. Drives this slice's paths (under `build/phase10/`). 10a: the native
+   library must load (the file is printed); the flagship's PLY (100,000
+   Gaussians) through the C++ codec and the numpy one, files and arrays
+   equal; then phase 9's dataset shape (4 motions x 9 views x 21 frames
+   at 576^2, 1.0 GB, every frame distinct) with DIMO_DEVICE_DATA=0: the
+   flagship s2 checkpoint trained HOST_STEPS steps after a warm-up (16
+   renders at 512^2, LPIPS off) through the packer's page-locked slots,
+   every batch's device GT equal to the flat gather of its frames (read
+   only after the steps), against the same steps through numpy's gather
+   on the host and with the dataset on the device, the three routes in
+   turns (the losses within 1e-4); launches K1 ch7 = K2 = K3 = K4 = 16 a
+   step; `bench_train_torch.py`'s packer probe. 10b: a Trainer whose
+   steps are made with a one-rank NCCL mesh against one without a mesh,
+   two steps each from one state (loss 1e-5); then two ranks sharing the
+   card over gloo
+   (`parallel/check.py::card_worker`, spawned, a hard timeout): the
+   flagship s2 step at data_parallel=2 against data_parallel=1 from one
+   state (loss 1e-5, every gradient leaf 1e-3 relative L2, both ranks'
+   parameters bit-identical, K1 ch7 = K3 = K2 = K4 = 8 a rank), and the
+   fps render (ch3, 512^2, capacity 512) and the ch7 render sharded over
+   both ranks, bit-equal to the unsharded render. 10c: `eval_quality_torch.py
+   --fast --iters 30,20` (LPIPS on): the JSON keys, a finite PSNR, scored
+   at the trainer's live capacity, the video step's outcome printed.
+   `python3 chip_smoke.py --phase 10` builds and runs this phase alone
+   (a development run: no result line).
+11. Runs `bench_torch.py`'s functions on a fresh flagship scene with
    BENCH_ROUNDS ch3 renders instead of its 500: the selfcheck (must pass),
    the frames/s, and capacity 1024's delta against 4096; prints its line
    and the fps harness's frames/s beside it.
-11. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
+12. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
    both channel variants and K8 in all three; `launches` of K1 ch7, K2, K3
    and K4 from phase 6b, the main path, and each kernel's launches in
-   every phase-9 run), the card's name and power limit, and last the
-   device line.
+   every phase-9 and phase-10 run), the card's name and power limit, and
+   last the device line.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -260,6 +285,15 @@ FT_ITERS = 3                   # test_motion's fit (1000)
 FT_ITERS_A, FT_ITERS_B = 2, 2  # test_unaligned_motion's phases (400, 1000)
 FT_RES_STEPS = 3               # timed fine-tuning steps at each resolution
 TRAIN_CLI_ITERS = (6, 3)       # the train CLI's s1, s2 iterations (1500, 5000)
+# phase 10: the native batch I/O, the parallel paths and the quality run;
+# the depth cuts (the reference's in brackets)
+HOST_DATA_SHAPE = (4, 9, 21, 576)  # phase 9's dataset: motions, views, frames, side
+HOST_STEPS = 3                 # s2 steps a dataset route, after one warm-up
+HOST_START_STEP = 449          # the s2 step the routes start after (512^2)
+PARALLEL_WORLD = 2             # ranks sharing the one card (gloo)
+PARALLEL_TIMEOUT_S = 420       # a rank that outlives this fails the phase
+SP_FPS_ROUNDS = 20             # sharded fps renders timed (500)
+QUALITY_ITERS = "30,20"        # the cut quality run (700 + 500)
 
 
 def fail(msg: str) -> None:
@@ -1922,19 +1956,6 @@ def frames_close(got, ref, what: str) -> int:
     return flips
 
 
-def move_timenet(params, seed: int) -> None:
-    """Give TimeNet's zero-initialised output layers seeded weights, so the
-    control points move and a latent fit has a gradient."""
-    import numpy as np
-    import torch
-    rng = np.random.RandomState(seed)
-    net = params.timenet
-    with torch.no_grad():
-        for lin in (net.pts_1, net.rot_1):
-            lin.weight.copy_(torch.from_numpy(
-                (0.02 * rng.randn(*lin.weight.shape)).astype(np.float32)))
-
-
 def motion_dirs(folder: str, n: int) -> str:
     """A folder of n empty motion directories, motion_00.. (what the test
     CLI's `load_info` lists when there is no info.json)."""
@@ -1974,7 +1995,7 @@ def small_sequences(root: str, device) -> dict:
     import numpy as np
     from dimo_tpu_torch import test_modes
     from dimo_tpu_torch.presets import tiny_synthetic_opt
-    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.scenes import flagship_scene, move_timenet
     from dimo_tpu_torch.train.loop import Trainer
     scene = flagship_scene(2048, 32, 8, seed=3, device="cpu")
     move_timenet(scene[1], 5)
@@ -2017,6 +2038,355 @@ def write_motion_pngs(folder: str, images, masks) -> None:
             cv2.imwrite(os.path.join(d, f"{f:02d}.png"), bgra)
 
 
+def host_dataset(shape: tuple) -> tuple:
+    """(images, masks, meta) of shape (M, V, F, S): a seeded random frame
+    plus each frame's own offset, so that every frame differs from every
+    other and a batch row shows which frame it holds."""
+    import numpy as np
+    m, v, f, side = shape
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 256, (side, side, 3)).astype(np.uint8)
+    images = np.empty((m, v, f, side, side, 3), np.uint8)
+    masks = np.empty((m, v, f, side, side), np.uint8)
+    flat_i = images.reshape(-1, side, side, 3)
+    flat_m = masks.reshape(-1, side, side)
+    for i in range(flat_i.shape[0]):
+        np.add(base, np.uint8(i % 251), out=flat_i[i])
+        np.add(base[..., 0], np.uint8((7 * i) % 253), out=flat_m[i])
+    meta = {"input_videos": [f"motion_{k:02d}" for k in range(m)],
+            "azimuths": list(np.linspace(0, 360, v, endpoint=False)),
+            "elevations": [0.0] * v}
+    return images, masks, meta
+
+
+def host_trainer(dev, data, save_path: str, device_data: str):
+    """A Trainer on `data` with DIMO_DEVICE_DATA=device_data, holding the
+    flagship s2 checkpoint under save_path, at s2 step HOST_START_STEP
+    (the next renders at 512^2), its trajectories cached for the guidance
+    loss."""
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.train.loop import Trainer
+    held = os.environ.get("DIMO_DEVICE_DATA")
+    os.environ["DIMO_DEVICE_DATA"] = device_data
+    try:
+        m, v, f, side = data[0].shape[:4]
+        opt = tiny_synthetic_opt(
+            save_path=save_path, batch_size=2, num_views=v, num_frames=f,
+            ref_size=side, W=WIDTH, H=HEIGHT, fovy=33.9, latent_code_dim=32,
+            num_cpts=512, capacity_s1=8192, tile_capacity=CAPACITY)
+        tr = Trainer(opt, *data, device=dev)
+    finally:
+        if held is None:
+            os.environ.pop("DIMO_DEVICE_DATA")
+        else:
+            os.environ["DIMO_DEVICE_DATA"] = held
+    tr.load_checkpoint("s2")
+    tr.stage, tr.step = "s2", HOST_START_STEP
+    tr.cache_s1_trajectories()
+    return tr
+
+
+def sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_steps(tr, n: int, warmup: bool, check_rows=None) -> dict:
+    """n train steps (after one more as a warm-up); ms per step (host
+    clock, synchronized), ms per `sample_batch` (host clock), losses, and
+    every batch's device GT kept for `check_rows` (read only after the
+    steps, so no read of the card waits out a copy before the packer's
+    next fill)."""
+    held, kept, batch_ms = tr.sample_batch, [], []
+
+    def sample():
+        t0 = time.perf_counter()
+        meta = tr._pending_meta
+        out = held()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append((meta, out[0]["gt_image"], out[0]["gt_mask"]))
+        return out
+
+    tr.sample_batch = sample
+    losses = []
+    tr.log_fn = lambda s, st, m, trainer: losses.append(float(m["loss"]))
+    try:
+        if warmup:
+            tr.train_step_once()
+        sync(tr.device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.train_step_once()
+        sync(tr.device)
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+    finally:
+        tr.sample_batch = held
+    bad = check_rows(kept) if check_rows else 0
+    return {"step_ms": step_ms, "batch_ms": batch_ms, "losses": losses,
+            "bad_rows": bad}
+
+
+def native_phase(dev, root: str) -> dict:
+    """Phase 10a: the native library (which file loaded), the flagship's
+    PLY through the C++ codec and the numpy one, then the s2 step on phase
+    9's dataset shape kept on the host (the packer, page-locked slots,
+    asynchronous copies) against the same steps through numpy's gather
+    and with the dataset on the device, in turns, and
+    `bench_train_torch.py`'s packer probe."""
+    import numpy as np
+    import torch
+    import bench_train_torch
+    from dimo_tpu_torch.io import native, ply
+    from dimo_tpu_torch.scenes import flagship_scene
+    t_phase = time.time()
+    if not native.available():
+        fail("phase 10a: the native library did not load")
+    out = {"library": os.path.relpath(native.library_path(), os.path.dirname(
+        os.path.abspath(__file__)))}
+    scene = flagship_scene(device=dev)
+    p = scene[1]
+    cols = [p.xyz, p.features_dc, p.features_rest, p.opacity, p.scaling,
+            p.rotation]
+    cols = [c.detach().cpu().numpy() for c in cols]
+    paths = {w: os.path.join(root, f"flagship_{w}.ply")
+             for w in ("native", "numpy")}
+    t0 = time.perf_counter()
+    ply.save_gaussians(paths["native"], *cols)
+    out["ply_write_native_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got_native = ply._read_ply(paths["native"])
+    out["ply_read_native_ms"] = (time.perf_counter() - t0) * 1e3
+    lib, native._LIB = native._LIB, None       # the numpy codec alone
+    try:
+        t0 = time.perf_counter()
+        ply.save_gaussians(paths["numpy"], *cols)
+        out["ply_write_numpy_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got_numpy = ply._read_ply(paths["native"])
+        out["ply_read_numpy_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        native._LIB = lib
+    with open(paths["native"], "rb") as fa, open(paths["numpy"], "rb") as fb:
+        if fa.read() != fb.read():
+            fail("phase 10a: the native and numpy PLY writers differ")
+    if got_native.keys() != got_numpy.keys() or not all(
+            np.array_equal(got_native[k], got_numpy[k]) for k in got_native):
+        fail("phase 10a: the native and numpy PLY readers differ")
+    if not np.array_equal(got_native["x"], cols[0][:, 0]):
+        fail("phase 10a: the PLY round trip changed the positions")
+    out["ply_gaussians"] = int(cols[0].shape[0])
+    write_checkpoint(root, scene, HOST_DATA_SHAPE[0], dev)
+    del scene, p, cols
+    free_cached()
+
+    t0 = time.time()
+    data = host_dataset(HOST_DATA_SHAPE)
+    out["dataset_bytes"] = int(data[0].nbytes + data[1].nbytes)
+    out["dataset_s"] = time.time() - t0
+    side = HOST_DATA_SHAPE[3]
+    flat_i = data[0].reshape(-1, side, side, 3)
+    flat_m = data[1].reshape(-1, side, side)
+
+    def check_rows(kept) -> int:
+        bad = 0
+        for meta, gi, gm in kept:
+            if meta is None:
+                continue      # the first batch's meta was drawn inside
+            if not (np.array_equal(gi.cpu().numpy(), flat_i[meta["flat"]])
+                    and np.array_equal(gm.cpu().numpy(),
+                                       flat_m[meta["flat"]])):
+                bad += 1
+        return bad
+
+    save = os.path.join(root, "run")
+    trainers, draws = {}, {}
+    for route, dd in (("packer", "0"), ("numpy", "0"), ("device", "1")):
+        tr = trainers[route] = host_trainer(dev, data, save, dd)
+        if route == "numpy":
+            tr._get_packer = lambda b: None    # numpy's gather on the host
+        # the motions are drawn from the global np.random (the reference's
+        # sampling): each route keeps its own stream, so all draw the same
+        # batches in turns
+        draws[route] = np.random.get_state()
+        on_host = tr._dev_images is None
+        if on_host != (route != "device"):
+            fail(f"phase 10a: DIMO_DEVICE_DATA={dd} kept the dataset on the "
+                 f"{'host' if on_host else 'device'}")
+        out[route] = {"step_ms": [], "batch_ms": [], "losses": []}
+    # the three routes in turns, the same batches on each
+    for rep in range(2):
+        for route, tr in trainers.items():
+            zero_launch_counts()
+            np.random.set_state(draws[route])
+            r = run_steps(tr, HOST_STEPS, rep == 0, check_rows)
+            draws[route] = np.random.get_state()
+            got = launch_counts()
+            renders = (HOST_STEPS + (rep == 0)) * 16
+            if got["K1 ch7"] != renders or got["K3"] != renders \
+                    or got["K2"] != renders or got["K4"] != renders:
+                fail(f"phase 10a {route}: launches {got}, expected {renders}")
+            o = out[route]
+            o["launches"] = got
+            o["step_ms"].append(r["step_ms"])
+            o["batch_ms"] += r["batch_ms"]
+            o["losses"] += r["losses"]
+            if route != "device" and r["bad_rows"]:
+                fail(f"phase 10a {route}: {r['bad_rows']} batches differ "
+                     "from the flat gather of their frames")
+    tr = trainers["packer"]
+    if tr._packer is None:
+        fail("phase 10a: the packer route did not use the packer")
+    if trainers["numpy"]._packer is not None:
+        fail("phase 10a: the numpy route used the packer")
+    out["packer"]["pinned"] = bool(tr._packer.out_imgs[0].is_pinned())
+    if not out["packer"]["pinned"]:
+        fail("phase 10a: the packer's slots are not page-locked")
+    del trainers, tr
+    free_cached()
+    ld = out["device"]["losses"]
+    for route in ("packer", "numpy"):
+        lh = out[route]["losses"]
+        if (len(lh) != 2 * HOST_STEPS + 1 or lh[0] != ld[0]
+                or not np.allclose(lh, ld, rtol=1e-4)):
+            fail(f"phase 10a: {route}-route losses {lh} vs device-route {ld}")
+    pk, npy = bench_train_torch.packer_probe(2, 2, dev)
+    out["host_batch_packer_ms"], out["host_batch_numpy_ms"] = pk, npy
+    out["wall_s"] = time.time() - t_phase
+    return out
+
+
+def parallel_phase(dev, root: str) -> dict:
+    """Phase 10b: the Trainer with a one-rank NCCL mesh against a Trainer
+    without one (the same batches, each step from one state), then
+    two ranks sharing the card over gloo (`parallel/check.py::
+    card_worker`): the flagship s2 step at data_parallel=2 against one
+    rank, and the fps render sharded over both."""
+    import json as _json
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dimo_tpu_torch.parallel import check
+    from dimo_tpu_torch.parallel import mesh as mesh_mod
+    t_phase = time.time()
+    out = {}
+    data = host_dataset((2, 2, 2, 128))
+    save = os.path.join(root, "run")
+    ref = host_trainer(dev, data, save, "1")
+    if ref.mesh is not None:
+        fail("phase 10b: a Trainer outside a group took a mesh")
+    rdv = os.path.join(root, "nccl_rdv")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        tr = host_trainer(dev, data, save, "1")
+        if tr.mesh is not None:
+            fail("phase 10b: a Trainer at data_parallel=1 took a mesh")
+        # its steps are made with the one-rank mesh: every collective of
+        # the data-parallel step runs over NCCL
+        tr.mesh = mesh_mod.make_mesh(1, device=dev)
+        tr._step_fns.clear()
+        if dist.get_backend() != "nccl":
+            fail("phase 10b: the one-rank group is not NCCL")
+        log = []
+        zero_launch_counts()
+        for _ in range(2):
+            check._step_both(tr, ref, log)
+        out["nccl_world1"] = log
+        out["nccl_launches"] = launch_counts()
+    finally:
+        dist.destroy_process_group()
+    for s in log:
+        if not np.isclose(s["dp_loss"], s["ref_loss"], rtol=1e-5, atol=0):
+            fail(f"phase 10b: NCCL world 1 loss {s['dp_loss']} vs "
+                 f"{s['ref_loss']}")
+    del tr, ref
+    free_cached()
+
+    work = os.path.join(root, "ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    kw = {"device": "cuda", "shape": TRAIN_SHAPE, "res": WIDTH,
+          "capacity": CAPACITY, "fps_size": WIDTH, "fps_capacity": 512,
+          "fps_rounds": SP_FPS_ROUNDS}
+    t0 = time.time()
+    try:
+        check.spawn(check.card_worker, PARALLEL_WORLD,
+                    (os.path.join(work, "rdv"), work, kw), PARALLEL_TIMEOUT_S)
+    except Exception as e:
+        fail(f"phase 10b: the two ranks failed: {e!r}")
+    out["ranks_s"] = time.time() - t0
+    per_rank = TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * TRAIN_SHAPE[2] // PARALLEL_WORLD
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(work, f"card_rank{r}.json")) as f:
+            res = _json.load(f)
+        ranks.append(res)
+        if not np.isclose(res["loss"], res["ref_loss"], rtol=1e-5, atol=0):
+            fail(f"phase 10b rank {r}: loss {res['loss']} vs data_parallel=1 "
+                 f"{res['ref_loss']}")
+        worst = max(res["grad_rel_l2"].values())
+        if not worst <= 1e-3:
+            fail(f"phase 10b rank {r}: gradient relative L2 by leaf "
+                 f"{res['grad_rel_l2']}; the unsharded step's own spread "
+                 f"{res['ref_spread_rel_l2']}")
+        if not all(res["same_as_rank0"].values()) or res["nonfinite"]:
+            fail(f"phase 10b rank {r}: parameters differ from rank 0's "
+                 f"{res['same_as_rank0']} (non-finite {res['nonfinite']})")
+        if res["launches"] != {"K1 ch7": per_rank, "K3": per_rank,
+                               "K2": per_rank, "K4": per_rank}:
+            fail(f"phase 10b rank {r}: launches {res['launches']}, expected "
+                 f"{per_rank} each")
+        if not (res["sp_ch3_equal"] and res["sp_ch7_equal"]):
+            fail(f"phase 10b rank {r}: the sharded render differs "
+                 f"(ch3 {res['sp_ch3_max_err']}, ch7 {res['sp_ch7_max_err']})")
+        if res["fps_sp_k1_ch3"] != SP_FPS_ROUNDS:
+            fail(f"phase 10b rank {r}: K1 ch3 {res['fps_sp_k1_ch3']} in "
+                 f"{SP_FPS_ROUNDS} sharded renders")
+    out["ranks"] = ranks
+    out["wall_s"] = time.time() - t_phase
+    return out
+
+
+def quality_phase(dev, root: str) -> dict:
+    """Phase 10c: `eval_quality_torch.py --fast --iters 30,20` on the card
+    at its 256^2 shape, LPIPS on (the seeded fallback): the JSON keys, a
+    finite PSNR, the scoring at the trainer's live capacity."""
+    import math
+    from dimo_tpu_torch import eval_quality
+    t_phase = time.time()
+    seen = {}
+    score = eval_quality.score_psnr
+
+    def scored(tr, images, capacity):
+        seen.update(live=int(tr.tile_capacity), used=int(capacity))
+        return score(tr, images, capacity)
+
+    eval_quality.score_psnr = scored
+    try:
+        res = eval_quality.main(
+            ["--fast", "--iters", QUALITY_ITERS,
+             "--out", os.path.join(root, "eval_quality_fast.json"),
+             "--run-dir", os.path.join(root, "eval_quality"),
+             "--videos", os.path.join(root, "eval_quality_videos")],
+            device=dev)
+    finally:
+        eval_quality.score_psnr = score
+    want = {"psnr", "gate", "passed", "n_gaussians", "resolution", "motions",
+            "iters", "train_seconds", "sec_per_step", "lpips",
+            "eval_capacity", "videos_ok", "videos_error", "fast", "scale512"}
+    if set(res) != want:
+        fail(f"phase 10c: keys {sorted(res)}")
+    if not math.isfinite(res["psnr"]) or res["gate"] != 26.0:
+        fail(f"phase 10c: {res}")
+    if seen.get("live") != res["eval_capacity"] or seen["used"] != seen["live"]:
+        fail(f"phase 10c: scored at {seen}, reported {res['eval_capacity']}")
+    res["wall_s"] = time.time() - t_phase
+    return res
+
+
 def test_modes_phase(dev, root: str) -> dict:
     """Phase 9: the test CLI's body on the flagship checkpoint in every mode,
     at `configs/test_config.yaml`'s widths, then the train CLI's body on
@@ -2029,7 +2399,7 @@ def test_modes_phase(dev, root: str) -> dict:
     from dimo_tpu_torch.io import dataset as dataset_io
     from dimo_tpu_torch.io.config import load_config
     from dimo_tpu_torch.io.synthetic import make_synthetic_videos
-    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.scenes import flagship_scene, move_timenet
     from dimo_tpu_torch.train import optim
     from dimo_tpu_torch.train.step import init_state, make_train_step
     from dimo_tpu_torch.train.loop import Trainer, loss_config_from_opt
@@ -2356,6 +2726,96 @@ def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
             "per_step": per_step}
 
 
+def phase10(dev, card: str) -> dict:
+    """Phase 10 (10a native I/O, 10b the parallel paths, 10c the quality
+    run) under build/phase10/; prints each part's results and seconds and
+    returns the launches per run and a summary."""
+    import torch
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase10")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    a = native_phase(dev, root)
+    h, n, d = a["packer"], a["numpy"], a["device"]
+    print(f"phase 10a native library: {a['library']}; flagship PLY "
+          f"({a['ply_gaussians']} Gaussians) native write / read "
+          f"{a['ply_write_native_ms']:.1f} / {a['ply_read_native_ms']:.1f} ms, "
+          f"numpy {a['ply_write_numpy_ms']:.1f} / {a['ply_read_numpy_ms']:.1f}"
+          " ms, files and arrays equal")
+    print(f"phase 10a dataset {HOST_DATA_SHAPE} ({a['dataset_bytes']} B, made "
+          f"in {a['dataset_s']:.2f} s), s2 steps of 16 renders at "
+          f"{WIDTH}^2, LPIPS off, a warm-up then twice {HOST_STEPS} timed, "
+          f"the routes in turns: " + "; ".join(
+              f"{name} {' / '.join(f'{x:.1f}' for x in r['step_ms'])} ms a "
+              f"step, sample_batch "
+              f"{', '.join(f'{x:.2f}' for x in r['batch_ms'])} ms"
+              for name, r in (("on the host through the packer (page-locked "
+                               f"{h['pinned']})", h),
+                              ("on the host through numpy's gather", n),
+                              ("on the device", d)))
+          + f"; every host batch equal to the flat gather of its frames; "
+          f"losses packer {h['losses']} numpy {n['losses']} device "
+          f"{d['losses']}; launches {h['launches']}")
+    print(f"phase 10a bench_train_torch.packer_probe (4 x 2 x 2 x 512^2, "
+          f"batch 16, until the frames are on the card): host_batch_packer_ms "
+          f"{a['host_batch_packer_ms']:.3f} host_batch_numpy_ms "
+          f"{a['host_batch_numpy_ms']:.3f}; phase {a['wall_s']:.1f} s; {card}")
+    torch.cuda.empty_cache()
+    b = parallel_phase(dev, root)
+    r0 = b["ranks"][0]
+    print("phase 10b NCCL world 1 (Trainer, steps with make_mesh(1)) vs "
+          "no mesh, 8 renders a step: " + "; ".join(
+              f"step {s['step']} loss {s['dp_loss']:.6f} vs {s['ref_loss']:.6f}"
+              for s in b["nccl_world1"]) + f"; launches {b['nccl_launches']}")
+    for r, res in enumerate(b["ranks"]):
+        print(f"phase 10b rank {r} of {PARALLEL_WORLD} (gloo, one card): "
+              f"loss {res['loss']:.6f} vs data_parallel=1 {res['ref_loss']:.6f}"
+              f"; worst gradient relative L2 "
+              f"{max(res['grad_rel_l2'].values()):.3e}; parameters equal to "
+              f"rank 0's; launches {res['launches']}; step "
+              f"{res['dp_step_s'] * 1e3:.1f} ms at data_parallel=2 (both "
+              f"ranks on the card at once) vs {res['ref_step_s'] * 1e3:.1f} "
+              f"ms for the whole batch on one rank, the other waiting; fps "
+              f"render sharded: ch3 and ch7 images "
+              f"bit-equal, {res['fps_sp']:.2f} frames/s sharded vs "
+              f"{res['fps_full']:.2f} unsharded ({SP_FPS_ROUNDS} rounds)")
+    print(f"phase 10b: ranks {b['ranks_s']:.1f} s (spawn to join), phase "
+          f"{b['wall_s']:.1f} s; no multi-card speed is measured (one card)")
+    torch.cuda.empty_cache()
+    c = quality_phase(dev, root)
+    print(f"phase 10c eval_quality_torch.py --fast --iters {QUALITY_ITERS}: "
+          f"PSNR {c['psnr']} dB (gate {c['gate']}), {c['n_gaussians']} "
+          f"Gaussians, eval_capacity {c['eval_capacity']} (the trainer's live "
+          f"capacity), {c['sec_per_step']} s a step, videos_ok "
+          f"{c['videos_ok']} videos_error {c['videos_error']}; phase "
+          f"{c['wall_s']:.1f} s")
+    return {"launches": {"packer_route": h["launches"],
+                         "numpy_route": n["launches"],
+                         "device_route": d["launches"],
+                         "nccl_world1": b["nccl_launches"],
+                         "two_ranks_each": {
+                             **r0["launches"],
+                             "K1 ch3": r0["fps_sp_k1_ch3"]}},
+            "summary": {
+                "native_library": a["library"],
+                "packer_step_ms": h["step_ms"], "numpy_step_ms": n["step_ms"],
+                "device_step_ms": d["step_ms"],
+                "packer_batch_ms": h["batch_ms"],
+                "numpy_batch_ms": n["batch_ms"],
+                "device_batch_ms": d["batch_ms"],
+                "host_batch_packer_ms": a["host_batch_packer_ms"],
+                "host_batch_numpy_ms": a["host_batch_numpy_ms"],
+                "dp2_step_ms": [r["dp_step_s"] * 1e3 for r in b["ranks"]],
+                "dp1_step_ms": [r["ref_step_s"] * 1e3 for r in b["ranks"]],
+                "dp2_grad_rel_l2": [max(r["grad_rel_l2"].values())
+                                    for r in b["ranks"]],
+                "sp_fps": [r["fps_sp"] for r in b["ranks"]],
+                "fps_unsharded": [r["fps_full"] for r in b["ranks"]],
+                "quality_fast": c,
+                "wall_s": {"10a": a["wall_s"], "10b": b["wall_s"],
+                           "10c": c["wall_s"]}}}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2393,6 +2853,11 @@ def main() -> None:
     for name, log in logs.items():
         for ln in ptxas_summary(log):
             print(f"  ptxas[{name}]: {ln}")
+    if sys.argv[1:] == ["--phase", "10"]:
+        # a development run of phase 10 alone: no result line
+        phase10(dev, card)
+        print(f"chip_smoke --phase 10: passed in {time.time() - t_start:.1f} s")
+        sys.exit(0)
 
     # --- scene at full width, KNN once ----------------------------------
     t0 = time.time()
@@ -3142,6 +3607,10 @@ def main() -> None:
                      for k, v in p9["uploads"].items())
           + f" ms; the fps harness (capacity 512) {p9['fps']:.2f} frames/s")
 
+    # --- 10. native batch I/O, the parallel paths, the quality run -------
+    torch.cuda.empty_cache()
+    p10 = phase10(dev, card)
+
     # --- bench: bench_torch.py's functions, fewer rounds ---------------
     torch.cuda.empty_cache()
     cs.launches = dict.fromkeys(cs.launches, 0)
@@ -3300,6 +3769,9 @@ def main() -> None:
         key = counter_of[row["name"]]
         row["launches_test_modes"] = {m: c[key]
                                       for m, c in p9["launches"].items()}
+        # null: a run that does not count that kernel
+        row["launches_phase10"] = {m: c.get(key)
+                                   for m, c in p10["launches"].items()}
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"fps_ch3": fps,
                       "seq_ch7_frames_per_s": SEQ_FRAMES / seq_s,
@@ -3329,7 +3801,8 @@ def main() -> None:
                       "test_modes_seq_ms_per_frame": p9["seq_ms_by_mode"],
                       "test_fps_harness": p9["fps"],
                       "finetune_step_ms": p9["res_ms"],
-                      "test_cli_uploads": p9["uploads"]}))
+                      "test_cli_uploads": p9["uploads"],
+                      "phase10": p10["summary"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,11 @@ Layers (bottom-up):
   models/    Gaussians, TimeNet, KNN-LBS deformation, the renderer,
              LPIPS (VGG16)
   train/     per-group Adam, the s1/s2 train steps, the two-stage trainer
+  parallel/  process groups over torch.distributed: data parallelism of
+             the train step, spatial sharding of one render
   io/        weight and optimizer-state conversion from the JAX package's
-             numpy leaves, checkpoints, PLY, config, synthetic videos
+             numpy leaves, checkpoints, PLY, config, synthetic videos,
+             datasets, the native PLY codec and batch packer
   utils/     cameras (numpy), LR schedules, diagnostics (step timer,
              profiler trace, NaN checks), small helpers
 
@@ -33,5 +36,5 @@ __version__ = "0.1.0"
 # stated here so no other import can flip it silently). cuDNN runs two
 # things, each at a precision it sets for its own calls and no global cuDNN
 # flag: SSIM's blur in float32 (`ops/image_losses.py`), LPIPS's VGG
-# convolutions in TF32, forward and backward (`models/lpips.py`).
+# convolutions in float32, forward and backward (`models/lpips.py`).
 _torch.backends.cuda.matmul.allow_tf32 = False

@@ -10,6 +10,15 @@ same config keys, routes and precedence; the root scripts
     python main_test_dimo_torch.py --config configs/test_config.yaml \
         save_path=... input_folder=... test_motion=True ...
 
+Data parallelism over N cards, one process per card (NCCL):
+    torchrun --nproc_per_node N main_train_dimo_torch.py \
+        --config configs/train_config.yaml data_parallel=N ...
+and one fps render sharded over N cards:
+    torchrun --nproc_per_node N main_test_dimo_torch.py \
+        --config configs/test_config.yaml test_fps=True spatial_parallel=N ...
+Under data parallelism only rank 0 writes the config, the logs and the
+checkpoints.
+
 Everything runs on `device` ("cuda" unless a caller, such as a test, asks
 for the CPU; there is no flag for it). `train_main` / `test_main` parse
 the arguments and the YAML file (PyYAML); `run_train` / `run_test` are
@@ -101,6 +110,10 @@ def run_train(opt, device="cuda"):
     synthetic or folder data, the Trainer, LPIPS, then `train_dynamic`
     or (train_dynamic=False) the default test. Returns the Trainer."""
     dev = resolve_device(device)
+    if int(opt.get("data_parallel", 1) or 1) > 1:
+        # join torchrun's group first: it binds this rank to its card
+        from dimo_tpu_torch.parallel import mesh as mesh_mod
+        mesh_mod.init_from_env()
     from dimo_tpu_torch.io import dataset as dataset_io
     from dimo_tpu_torch.io import synthetic as synth_io
     from dimo_tpu_torch.io.config import save_config
@@ -129,13 +142,11 @@ def run_train(opt, device="cuda"):
             images = np.zeros((m, num_views, num_frames, s, s, 3), np.uint8)
             masks = np.zeros((m, num_views, num_frames, s, s), np.uint8)
 
-    log_fn = None
-    if opt.train_dynamic and opt.save_path:
+    trainer = Trainer(opt, images, masks, meta, device=dev)
+    if opt.train_dynamic and opt.save_path and trainer.lead:
         os.makedirs(opt.save_path, exist_ok=True)
         save_config(opt, os.path.join(opt.save_path, "config.yaml"))
-        log_fn = _train_logger(opt)
-
-    trainer = Trainer(opt, images, masks, meta, log_fn=log_fn, device=dev)
+        trainer.log_fn = _train_logger(opt) or trainer.log_fn
     lpips_fn = _lpips(opt, dev)
 
     if opt.save_path_new:
@@ -183,6 +194,9 @@ def run_test(opt, device="cuda"):
     test_language, test_interpolation, test_paper, else the default test
     (`main_test_dimo.py:70-96`)."""
     dev = resolve_device(device)
+    if int(opt.get("spatial_parallel", 1) or 1) > 1:
+        from dimo_tpu_torch.parallel import mesh as mesh_mod
+        mesh_mod.init_from_env()
     from dimo_tpu_torch import test_modes
     from dimo_tpu_torch.io import dataset as dataset_io
     from dimo_tpu_torch.train.loop import Trainer

@@ -1,8 +1,9 @@
 """Self-contained binary PLY codec for 3DGS point clouds.
 
-Copy of `dimo_tpu/io/ply.py`'s numpy path (the port keeps its own copy and
-imports nothing of the JAX package; the JAX package's optional native
-codec is not carried over). The on-disk formats are the reference's, so
+Copy of `dimo_tpu/io/ply.py` (the port keeps its own copy and imports
+nothing of the JAX package): the native C++ codec (`io/native.py`) reads
+and writes binary float32 files when the library is available, numpy
+otherwise and for other formats. The on-disk formats are the reference's, so
 checkpoints interchange with `dimo_tpu` and standard 3DGS viewers:
 
   * gaussian cloud: x y z nx ny nz f_dc_* f_rest_* opacity scale_* rot_*
@@ -20,6 +21,9 @@ import numpy as np
 
 def _write_ply(path: str, names: list[str], columns: np.ndarray) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    from dimo_tpu_torch.io import native
+    if native.available() and native.ply_write(path, names, columns):
+        return
     n = columns.shape[0]
     header = ["ply", "format binary_little_endian 1.0",
               f"element vertex {n}"]
@@ -35,6 +39,11 @@ def _write_ply(path: str, names: list[str], columns: np.ndarray) -> None:
 
 
 def _read_ply(path: str) -> dict[str, np.ndarray]:
+    from dimo_tpu_torch.io import native
+    if native.available():
+        out = native.ply_read(path)
+        if out is not None:
+            return out
     with open(path, "rb") as f:
         data = f.read()
     end = data.find(b"end_header")

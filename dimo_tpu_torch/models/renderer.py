@@ -62,6 +62,7 @@ def render(
     capacity: int = 512,
     use_oracle: bool = False,
     channels: int = 7,
+    sp=None,
 ):
     """Render one (camera, time, motion) job.
 
@@ -69,7 +70,9 @@ def render(
     once for many renders. rng: VAE reparameterization noise (None = mean).
     mean2d_tap: zero (N, 2) tensor whose gradient is the NDC-scaled
     dL/dmean2D (`ops/rasterizer/api.py`). use_oracle: composite densely
-    (`rasterize_dense`; capacity and channels do not apply).
+    (`rasterize_dense`; capacity, channels and sp do not apply). sp:
+    optional `parallel/mesh.py::make_sp_mesh` mesh sharding the
+    compositing of this render over its ranks (`rasterize`).
     """
     latent = G.sample_latent(params, latent_index, rng)
     opacity = G.get_opacity(params)
@@ -95,7 +98,8 @@ def render(
         rotations = quat_ops.normalize(params.rotation)
 
     raster = rasterize_dense if use_oracle else rasterize
-    kwargs = {} if use_oracle else {"capacity": capacity, "channels": channels}
+    kwargs = {} if use_oracle else {"capacity": capacity, "channels": channels,
+                                    "sp": sp}
     out = raster(
         means3d, scales, rotations, opacity, G.get_features(params),
         camera, width, height, bg,

@@ -15,6 +15,16 @@ the NDC-scaled units the densifier's `densify_grad_threshold` is stated
 in. The lists are built from detached means, so the tap never reaches the
 binning.
 
+Spatial parallelism (`sp`, a mesh of `parallel/mesh.py::make_sp_mesh`):
+projection, binning and the coefficient table are computed on every rank;
+the strips are dealt to the ranks by their entry counts
+(`strips.strip_owners`), each rank composites its own (the others' counts
+are set to 0, so K1 and K3 leave them at once) and keeps their pixels, and
+the planes are summed over ranks. Each pixel has one non-zero addend, so
+the image is the unsharded one bit for bit. In the backward the
+coefficient table's gradient is summed over ranks, so every rank holds
+the whole render's gradient.
+
 `rasterize_dense` is the same function through the dense O(N*P)
 compositor of `oracle.py` (tiny scenes: tests and the synthetic dataset).
 """
@@ -24,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from dimo_tpu_torch.parallel import mesh as mesh_mod
 from dimo_tpu_torch.ops.rasterizer import projection as proj_mod
 from dimo_tpu_torch.ops.rasterizer import strips as strips_mod
 from dimo_tpu_torch.ops.rasterizer.composite_strips import composite_strips
@@ -75,6 +86,7 @@ def rasterize(
     valid: torch.Tensor | None = None,
     mean2d_tap: torch.Tensor | None = None,
     channels: int = 7,
+    sp: mesh_mod.Mesh | None = None,
 ) -> RenderOutput:
     """Render N Gaussians through the strip compositor.
 
@@ -87,6 +99,8 @@ def rasterize(
       mean2d_tap: optional (N,2) zeros; see the module docstring.
       channels: 7 (rgb+depth+normal) or 3/4 for the early-exit variant
         (depth/normal outputs zero-filled where not composited).
+      sp: optional mesh that shards this render's strips over its ranks
+        (every rank calls with the same inputs; see the module docstring).
     """
     if channels not in (3, 4, 7):
         raise ValueError(f"channels must be 3, 4 or 7, got {channels}")
@@ -112,8 +126,20 @@ def rasterize(
         mean2d, p.conic, opacities, p.color, p.depth, p.normal,
         h_pad, w_pad)
 
-    planes = composite_strips(table, lists.idx, lists.count, h_pad, w_pad,
+    count = lists.count
+    if sp is not None and sp.size > 1:
+        owned = strips_mod.strip_owners(count, cs, sp.size) == sp.rank
+        count = torch.where(owned, count, torch.zeros_like(count))
+        table = mesh_mod.shard_input(table, sp)
+    planes = composite_strips(table, lists.idx, count, h_pad, w_pad,
                               channels)
+    if sp is not None and sp.size > 1:
+        nrows, ncols = strips_mod.num_strips(h_pad, w_pad)
+        px = owned.reshape(nrows, ncols).repeat_interleave(
+            strips_mod.STRIP_H, 0).repeat_interleave(strips_mod.STRIP_W, 1)
+        planes = mesh_mod.sum_over_ranks(
+            torch.where(px, planes, torch.zeros((), device=planes.device)),
+            sp)
     out = planes[:-1, :height, :width]
     tfin = planes[-1, :height, :width]
 

@@ -65,6 +65,19 @@ def build_strip_lists(mean2d, radius, depth, ok, height: int, width: int,
                       overflow_max=lists.overflow_max)
 
 
+def strip_owners(count: torch.Tensor, capacity: int, n: int) -> torch.Tensor:
+    """(Ns,) rank of each strip when one render is sharded over n ranks:
+    the strips sorted by their live entries (heaviest first, ties by strip
+    id) are dealt round-robin, so every rank gets an equal mix of heavy
+    and light strips (the reference deals its 4-strip buffers the same
+    way, `dimo_tpu/ops/rasterizer/strips.py::build_buffers`)."""
+    counts = torch.clamp(count, max=capacity)
+    order = torch.sort(-counts, stable=True).indices
+    owner = torch.empty_like(order)
+    owner[order] = torch.arange(order.shape[0], device=order.device) % n
+    return owner
+
+
 def coef_table(mean2d, conic, opacity, color, depth, normal,
                height: int, width: int) -> torch.Tensor:
     """(N+1, 16) per-gaussian table: home-strip-CENTER-local power-quadratic

@@ -68,3 +68,37 @@ def flagship_scene(n_gauss=100_000, n_cpts=512, latent_dim=32, seed=0,
     aux = aux.replace(active=torch.ones((n_gauss,), dtype=torch.bool, device=dev),
                       c_active=torch.ones((n_cpts,), dtype=torch.bool, device=dev))
     return cfg, params, aux, flagship_camera()
+
+
+def train_batch(params, shape, res: int, device) -> dict:
+    """`scripts/bench_train.py`'s batch: cameras at RandomState(0)
+    azimuths, radius 2, fov 33.9 deg; times, motion-major latent
+    indices, unit MSE weights, random uint8 GT at 512^2, zero guidance."""
+    n_m, n_v, n_f = shape
+    b = n_m * n_v * n_f
+    rng = np.random.RandomState(0)
+    fov = float(np.deg2rad(33.9))
+    cams = [cameras.Camera.from_c2w(
+        cameras.orbit_camera(0, rng.uniform(0, 360), 2.0), fov, fov)
+        for _ in range(b)]
+    dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {
+        "camera": cams,
+        "times": rng.rand(b).astype(np.float32),
+        "latent_idx": np.repeat(np.arange(n_m), n_v * n_f).astype(np.int32),
+        "mse_w": torch.ones(b, device=device),
+        "gt_image": dev(rng.randint(0, 255, (b, res, res, 3), np.uint8)),
+        "gt_mask": dev(rng.randint(0, 255, (b, res, res), np.uint8)),
+        "guidance": torch.zeros((b, params.c_xyz.shape[0], 3), device=device),
+    }
+
+
+def move_timenet(params, seed: int) -> None:
+    """Give TimeNet's zero-initialised output layers seeded weights, so the
+    control points move and a latent fit has a gradient."""
+    rng = np.random.RandomState(seed)
+    net = params.timenet
+    with torch.no_grad():
+        for lin in (net.pts_1, net.rot_1):
+            lin.weight.copy_(torch.from_numpy(
+                (0.02 * rng.randn(*lin.weight.shape)).astype(np.float32)))

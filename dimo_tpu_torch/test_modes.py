@@ -23,7 +23,8 @@ fresh `TrainState` with `train/step.py::init_state` and update its leaves
 in place; a fresh latent code is drawn from a `torch.Generator` seeded
 seed + 123 (seed + 321 for the control-point phase), so its numbers are
 not those of the reference's `jax.random.normal` (`_fresh_codes`).
-`spatial_parallel > 1` is not ported yet and raises.
+`run_test_fps` with `spatial_parallel=N` shards each frame's compositing
+over a group of N ranks (`torchrun`; `parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -549,13 +550,15 @@ def run_test_fps(tr, rounds: int = 500, size: int = 512) -> float:
     """Reference test_fps (`main_test_dimo.py:872-894`): 1 warmup + N timed
     renders at size^2 from the front camera, image only (channels=3), KNN
     computed once, at the run's capacity (`tile_capacity`, 512 by
-    default). The clock is read after a device synchronize."""
+    default). The clock is read after a device synchronize.
+    spatial_parallel=N shards each frame's strips over N ranks (every rank
+    runs this harness; `rasterize`'s `sp`)."""
     opt = tr.opt
     n_sp = int(opt.get("spatial_parallel", 1))
+    sp = None
     if n_sp > 1:
-        raise NotImplementedError(
-            "spatial_parallel > 1 is not ported yet (ROADMAP.md Queue A, "
-            "A6 `parallel/mesh.py`)")
+        from dimo_tpu_torch.parallel import mesh as mesh_mod
+        sp = mesh_mod.make_sp_mesh(n_sp, device=tr.device)
     tr.load_checkpoint(opt.test_stage, step=opt.get("test_step"))
     cfg, bg = tr.mcfg, torch.ones(3, device=tr.device)
     capacity = int(opt.get("tile_capacity", 512))
@@ -574,7 +577,7 @@ def run_test_fps(tr, rounds: int = 500, size: int = 512) -> float:
         def fn():
             return render(cfg, params, aux, cam, 0.0, stage, 0, size, size, bg,
                           knn_cache=knn, capacity=capacity,
-                          channels=3)["image"]
+                          channels=3, sp=sp)["image"]
 
         fn()
         sync()

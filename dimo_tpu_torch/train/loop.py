@@ -16,8 +16,21 @@ ARAP samples and the VAE noise come from `torch.Generator`s, so those
 numbers are not the JAX package's.
 
 LPIPS comes in as `lpips_fn` (`models/lpips.get_lpips`), as in the
-reference. Not here yet: data parallelism (raises) and the native
-double-buffered batch packer (the host path gathers with numpy).
+reference.
+
+The batch's frames come from the dataset on the device when it fits
+under DEVICE_DATA_MAX_BYTES (`DIMO_DEVICE_DATA`: auto, 1 force on, 0 force
+off), else from the host: the native double-buffered packer
+(`io/native.py`) gathers step k+1's frames into a page-locked slot while
+step k runs, and the slot is copied to the card asynchronously; numpy's
+gather where the native library is not available.
+
+Data parallelism (`data_parallel=N`, one process per rank, launched by
+`torchrun`; `parallel/mesh.py`): every rank draws the same batch meta,
+gathers and renders its contiguous B / N jobs, and the step sums the
+gradients over ranks (`train/step.py`), so the state stays replicated.
+Checkpoints, snapshots and the logger run on rank 0 only, and the other
+ranks wait for them.
 """
 from __future__ import annotations
 
@@ -30,9 +43,12 @@ import numpy as np
 import torch
 
 from dimo_tpu_torch.io import checkpoint as ckpt_io
+from dimo_tpu_torch.io import native as native_io
 from dimo_tpu_torch.io import ply as ply_io
 from dimo_tpu_torch.models import gaussians as G
 from dimo_tpu_torch.ops import sh as sh_ops
+from dimo_tpu_torch.parallel import mesh as mesh_mod
+from dimo_tpu_torch.train import optim
 from dimo_tpu_torch.train.step import LossConfig, init_state, make_train_step
 from dimo_tpu_torch.utils import cameras
 from dimo_tpu_torch.utils.general import resolve_device
@@ -97,13 +113,13 @@ class Trainer:
                  log_fn=None, device="cuda"):
         """images: uint8 (M, V, F, S, S, 3); masks: uint8 (M, V, F, S, S).
         meta: azimuths / elevations / input_videos. log_fn(stage, step,
-        metrics, trainer=self) is called after every step."""
-        dp = int(opt.get("data_parallel", 1) or 1)
-        if dp > 1:
-            raise NotImplementedError(
-                "data_parallel > 1 is not ported yet (ROADMAP.md Queue A, "
-                "`parallel/mesh.py`)")
+        metrics, trainer=self) is called after every step (on rank 0).
+        data_parallel=N > 1 needs a group of N ranks (`torchrun`)."""
         self.device = resolve_device(device)
+        dp = int(opt.get("data_parallel", 1) or 1)
+        self.mesh = (mesh_mod.make_mesh(dp, device=self.device) if dp > 1
+                     else None)
+        self.lead = self.mesh is None or self.mesh.rank == 0
         self.opt = opt
         self.images = images
         self.masks = masks
@@ -128,7 +144,11 @@ class Trainer:
         self.step = 0
         self.cpts_s1 = None            # (M, F, Mc, 3) cached guidance, numpy
         self._step_fns = {}
-        self._pending_meta = None      # a batch's meta set ahead by a caller
+        self._pending_meta = None      # the next batch's meta, drawn ahead
+        self._packer = None            # the native packer of the host path
+        self._packer_b = None
+        self._packer_pending = None    # the meta whose frames are packing
+        self._packer_warned = False
         # device-resident dataset: uploaded once when it fits, so a batch
         # is a row gather on the device instead of a host->device copy of
         # the ground truth every step
@@ -150,15 +170,37 @@ class Trainer:
                                    num_cpts=int(opt.num_cpts),
                                    device=self.device)
         self.state = init_state(params, aux, step=0, seed=self.seed)
+        self._replicate_state()
+
+    def _replicate_state(self) -> None:
+        """Every rank's state made rank 0's (a guard: each rank builds the
+        same state from the same seed and files)."""
+        if self.mesh is None:
+            return
+        s = self.state
+        aux = [getattr(s.aux, f.name) for f in dataclasses.fields(s.aux)]
+        mesh_mod.replicate(
+            [*optim.named_leaves(s.params).values(), *aux,
+             *s.opt.mu.values(), *s.opt.nu.values(), s.opt.step], self.mesh)
 
     def _upload_dataset(self) -> None:
         """Copy the frames and masks to the device when together they fit
-        under DEVICE_DATA_MAX_BYTES."""
-        if self.images.nbytes + self.masks.nbytes <= DEVICE_DATA_MAX_BYTES:
+        under DEVICE_DATA_MAX_BYTES, or as `DIMO_DEVICE_DATA` says (auto,
+        1 force on, 0 force off); an upload that fails (out of memory)
+        leaves the host path in place."""
+        dd = os.environ.get("DIMO_DEVICE_DATA", "auto")
+        total = self.images.nbytes + self.masks.nbytes
+        if dd == "0" or (dd != "1" and total > DEVICE_DATA_MAX_BYTES):
+            return
+        try:
             self._dev_images = torch.from_numpy(self._flat(self.images)).to(
                 self.device)
             self._dev_masks = torch.from_numpy(self._flat(self.masks)).to(
                 self.device)
+        except RuntimeError as e:      # torch.OutOfMemoryError among them
+            print(f"[trainer] device data cache unavailable ({e!r}); "
+                  "using host batch assembly")
+            self._dev_images = self._dev_masks = None
 
     @staticmethod
     def _flat(frames: np.ndarray) -> np.ndarray:
@@ -201,25 +243,98 @@ class Trainer:
             "shape": (n_sel, len(views), len(frames)),
         }
 
+    def _local(self, meta: dict) -> dict:
+        """This rank's contiguous jobs of a batch's meta (all of it without
+        a mesh); raises when the jobs do not divide over the ranks."""
+        n = len(meta["times"])
+        rows = self.mesh.rows(n) if self.mesh is not None else slice(0, n)
+        out = {k: meta[k][rows] for k in ("cams", "times", "lat_idx",
+                                          "mse_w", "mvf", "flat")}
+        out["lat_idx_all"], out["shape"] = meta["lat_idx"], meta["shape"]
+        return out
+
+    def _get_packer(self, batch_size: int):
+        """The native double-buffered frame packer for batches of
+        batch_size frames, or None (numpy's gather)."""
+        if self._packer_b == batch_size:
+            return self._packer
+        if self._packer is not None:
+            self._packer.close()   # releases the native handle and thread
+        try:
+            self._packer = native_io.BatchPacker(
+                self._flat(self.images), self._flat(self.masks), batch_size,
+                slots=2, pin_memory=self.device.type == "cuda")
+        except RuntimeError as e:
+            if not self._packer_warned:
+                print(f"[trainer] native BatchPacker unavailable ({e!r}); "
+                      "using numpy batch gathering")
+                self._packer_warned = True
+            self._packer = None
+        self._packer_b = batch_size
+        self._packer_pending = None
+        return self._packer
+
     def sample_batch(self):
-        """Assemble one batch: a row gather on the device when the dataset
-        lives there, else one numpy fancy-index gather and an upload."""
+        """Assemble one batch (this rank's jobs of it under a mesh): a row
+        gather on the device when the dataset lives there; else the
+        packer's slot, packed while the previous step ran, whose copy to
+        the device is asynchronous (the next batch's meta is drawn and its
+        frames submitted to the packer's other slot first); else one numpy
+        fancy-index gather and an upload."""
         meta = self._pending_meta or self._sample_meta()
         self._pending_meta = None
+        loc = self._local(meta)
         if self._dev_images is not None:
-            flat = torch.from_numpy(meta["flat"]).to(self.device)
-            return self._finish_batch(meta, self._dev_images[flat],
+            flat = self._upload(loc["flat"])
+            return self._finish_batch(loc, self._dev_images[flat],
                                       self._dev_masks[flat])
-        gt_i = torch.from_numpy(self._flat(self.images)[meta["flat"]])
-        gt_m = torch.from_numpy(self._flat(self.masks)[meta["flat"]])
-        return self._finish_batch(meta, gt_i.to(self.device),
-                                  gt_m.to(self.device))
+        b = len(loc["times"])
+        packer = self._get_packer(b)
+        if packer is None:
+            gt_i = torch.from_numpy(self._flat(self.images)[loc["flat"]])
+            gt_m = torch.from_numpy(self._flat(self.masks)[loc["flat"]])
+            return self._finish_batch(loc, gt_i.to(self.device),
+                                      gt_m.to(self.device))
+        if self._packer_pending is not meta:
+            # first use, or a meta set by a caller: pack this one (after
+            # the prefetched batch, which is dropped)
+            if self._packer_pending is not None:
+                packer.get()
+            packer.submit(loc["flat"])
+        slot_i, slot_m = packer.get()
+        # prefetch the NEXT batch into the other slot before the device
+        # sees this one
+        self._pending_meta = self._packer_pending = self._sample_meta()
+        nxt = self._local(self._pending_meta)
+        if len(nxt["times"]) == b:
+            packer.submit(nxt["flat"])
+        else:
+            self._packer_pending = None
+        # a copy, also on the CPU: the slot is refilled two batches on
+        gt_i = slot_i.to(self.device, non_blocking=True, copy=True)
+        gt_m = slot_m.to(self.device, non_blocking=True, copy=True)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            packer.hold(done)
+        return self._finish_batch(loc, gt_i, gt_m)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device. To a card it goes through
+        page-locked memory, asynchronously: a pageable copy would make the
+        host wait for every copy and kernel already queued (a page-locked
+        slot's copy among them) before the batch is handed on."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _finish_batch(self, meta, gt_i, gt_m):
         batch = {
             "camera": meta["cams"],
             "times": np.asarray(meta["times"], np.float32),
             "latent_idx": np.asarray(meta["lat_idx"], np.int32),
+            "latent_idx_all": np.asarray(meta["lat_idx_all"], np.int32),
             "mse_w": np.asarray(meta["mse_w"], np.float32),
             "gt_image": gt_i,
             "gt_mask": gt_m,
@@ -228,8 +343,8 @@ class Trainer:
             if self._dev_cpts is None:
                 self._dev_cpts = torch.from_numpy(self.cpts_s1).to(self.device)
             batch["guidance"] = self._dev_cpts[
-                torch.from_numpy(meta["mvf"][:, 0]).to(self.device),
-                torch.from_numpy(meta["mvf"][:, 2]).to(self.device)]
+                self._upload(meta["mvf"][:, 0]),
+                self._upload(meta["mvf"][:, 2])]
         return batch, meta["shape"]
 
     # ------------------------------------------------------------------
@@ -247,7 +362,7 @@ class Trainer:
                 n_motions, n_views, n_frames,
                 capacity=self.tile_capacity,
                 lpips_fn=lpips_fn,
-                use_guidance=(stage >= "s2"))
+                use_guidance=(stage >= "s2"), mesh=self.mesh)
         return self._step_fns[key]
 
     def _check_overflow(self, metrics):
@@ -352,7 +467,7 @@ class Trainer:
         res = render_resolution_for_step(self.step)
         batch, shape = self.sample_batch()
         step_fn = self.get_step_fn(self.stage, res, shape, lpips_fn)
-        self._last_b = max(1, len(batch["times"]))
+        self._last_b = max(1, len(batch["latent_idx_all"]))   # all ranks'
         self.state, metrics = step_fn(self.state, batch)
         if int(metrics["nonfinite_grad"]):
             print(f"[guard] step {self.step}: non-finite/overflow gradient "
@@ -360,7 +475,8 @@ class Trainer:
                   f"l2={float(metrics['grad_norm']):.2e}): update skipped "
                   "(params/moments untouched)")
         self._check_overflow(metrics)
-        self.log_fn(self.stage, self.step, metrics, trainer=self)
+        if self.lead:
+            self.log_fn(self.stage, self.step, metrics, trainer=self)
 
         # checkpoint cadence
         if self.step % int(opt.save_inter) == 0:
@@ -444,6 +560,7 @@ class Trainer:
                 m[name] = pad(m[name])
         self.mcfg = dataclasses.replace(self.mcfg, capacity=new_cap)
         self._step_fns.clear()
+        self._replicate_state()
 
     # ------------------------------------------------------------------
     # stage transitions
@@ -500,6 +617,7 @@ class Trainer:
 
         self.state = init_state(params2, aux2, step=0, seed=self.seed)
         self.state.rng = s.rng
+        self._replicate_state()
         self.stage = "s2"
         self.step = 0
         self._step_fns.clear()
@@ -530,7 +648,17 @@ class Trainer:
     # ------------------------------------------------------------------
     # checkpoint IO (the reference's directory layout)
 
+    def _on_lead(self, write, *args) -> None:
+        """write(*args) on rank 0 only; the other ranks wait for it."""
+        if self.lead:
+            write(*args)
+        if self.mesh is not None:
+            mesh_mod.barrier(self.mesh)
+
     def save_checkpoint(self, stage: str, step=None):
+        self._on_lead(self._save_checkpoint, stage, step)
+
+    def _save_checkpoint(self, stage: str, step=None):
         save_path = os.path.join(self.opt.save_path, stage)
         os.makedirs(save_path, exist_ok=True)
         s = self.state
@@ -558,7 +686,7 @@ class Trainer:
 
     def save_full_state(self, path: str):
         """Full resumable state, Adam moments included."""
-        ckpt_io.save_train_state(path, self.state)
+        self._on_lead(ckpt_io.save_train_state, path, self.state)
 
     def load_full_state(self, path: str):
         self.state = ckpt_io.load_train_state(path, self.device)
@@ -567,6 +695,9 @@ class Trainer:
     # elastic mid-run snapshots (see train_dynamic)
 
     def save_snapshot(self, dir_path: str, phase: str, done: int):
+        self._on_lead(self._save_snapshot, dir_path, phase, done)
+
+    def _save_snapshot(self, dir_path: str, phase: str, done: int):
         """Atomic full-progress snapshot: the TrainState (with Adam
         moments), the cached s1 trajectories, and the host-side scalars
         needed to continue. Each file is written under a temporary name
@@ -598,6 +729,10 @@ class Trainer:
         atomic("snapshot_meta.json", write_json)
 
     def clear_snapshot(self, dir_path: str):
+        self._on_lead(self._clear_snapshot, dir_path)
+
+    @staticmethod
+    def _clear_snapshot(dir_path: str):
         for name in _SNAPSHOT_FILES:
             try:
                 os.remove(os.path.join(dir_path, name))
@@ -649,6 +784,7 @@ class Trainer:
             self.mcfg, capacity=int(meta["capacity"]),
             cpt_capacity=int(meta["cpt_capacity"]))
         self.state = new_state
+        self._replicate_state()
         cpts_path = os.path.join(dir_path, "snapshot_cpts.npz")
         if os.path.exists(cpts_path):
             with np.load(cpts_path) as z:
@@ -709,4 +845,5 @@ class Trainer:
                                              device=self.device)
         params = params.replace(latent=latent, timenet=timenet)
         self.state = init_state(params, aux, step=0, seed=self.seed)
+        self._replicate_state()
         self._step_fns.clear()

@@ -39,11 +39,28 @@ non-finite guard still accumulates them.
 Batch (B = n_motions * n_views * n_frames, motion-major, then view, then
 frame): "camera" a list of B `utils.cameras.Camera`; "times" (B,) and
 "latent_idx" (B,) on the host; "mse_w" (B,); "gt_image" (B, S, S', 3) and
-"gt_mask" (B, S, S') uint8; "guidance" (B, M, 3). A GT of another size
+"gt_mask" (B, S, S') uint8; "guidance" (B, M, 3); optionally
+"latent_idx_all", the latent indices of the whole batch when the batch
+holds one rank's share of it (`parallel/mesh.py::shard_batch`). A GT of another size
 than the render is resized on the device as `jax.image.resize(...,
 "linear")` does it: half-pixel centres, and a triangle filter widened by
 the scale when it shrinks (`F.interpolate` with `antialias=True`,
 measured within 3e-7 of the reference). Same-size GT is used as it is.
+
+Data parallelism (`mesh`, `parallel/mesh.py`): each rank holds the same
+state and its contiguous B / N jobs of the batch. Its loss is the part of
+the global loss that its jobs carry: a per-motion mean over the motion's
+images becomes the mean over the rank's images of that motion times
+their share of the motion (a motion may straddle two ranks), and the
+terms of the parameters alone (KL, ARAP) are added by rank 0 only. Every
+rank draws the same random numbers in the same order: the VAE noise of
+every job of the batch (a rank draws and drops the noise of the jobs it
+does not render, so job b's noise does not depend on N), the ARAP times
+and samples. The gradients are summed over ranks before the non-finite
+guard and the clip, so every rank takes the same decision and the same
+update; the densification statistics of the batch's last render are
+broadcast from the rank that rendered it; the metrics are those of the
+whole batch (sums over ranks, `overflow_max` the maximum).
 """
 from __future__ import annotations
 
@@ -59,6 +76,7 @@ from dimo_tpu_torch.ops import arap as arap_mod
 from dimo_tpu_torch.ops import grad_conventions as gc
 from dimo_tpu_torch.ops import image_losses as L
 from dimo_tpu_torch.ops import neighbors
+from dimo_tpu_torch.parallel import mesh as mesh_mod
 from dimo_tpu_torch.train import optim
 from dimo_tpu_torch.utils import schedules
 
@@ -195,6 +213,7 @@ def make_train_step(
     lpips_fn: Callable | None = None,
     use_guidance: bool = False,
     trainable_groups: frozenset | None = None,
+    mesh: mesh_mod.Mesh | None = None,
 ) -> Callable:
     """The step for a fixed (stage, resolution, batch shape):
     `train_step(state, batch, arap_times=None, mark=None)` updates `state`
@@ -204,14 +223,40 @@ def make_train_step(
     interval also holds the GT's conversion), the other losses, the
     backward and the update (e.g. to record CUDA events).
     `lpips_fn(img1, img2)` -> (b,) distances of (b, 3, h, w) images.
-    `train_step.loss_fn` is the loss alone."""
+    `train_step.loss_fn` is the loss alone, of this rank's jobs under a
+    `mesh` (the batch is then this rank's share, see the module
+    docstring)."""
     if stage not in ("s1", "s2"):
         raise ValueError(f"stage must be 's1' or 's2', got {stage!r}")
     B = n_motions * n_views * n_frames
     per = n_views * n_frames
+    rows = mesh.rows(B) if mesh is not None else slice(0, B)
+    first, n_loc = rows.start, rows.stop - rows.start
+    lead = mesh is None or mesh.rank == 0     # adds the parameter-only terms
+    # this rank's jobs of each motion: (motion slot, local lo, hi, share)
+    chunks = [(m, lo - first, hi - first, (hi - lo) / per)
+              for m in range(n_motions)
+              for lo, hi in [(max(m * per, first),
+                              min((m + 1) * per, rows.stop))] if hi > lo]
 
-    def per_motion(x):
-        return x.reshape(n_motions, per, *x.shape[1:])
+    def motion_terms(fn, *xs):
+        """(n_motions,) of fn over each motion's local images times their
+        share of the motion; 0 for a motion with no job here."""
+        vals = [fn(*(x[lo:hi] for x in xs)) * share
+                for _, lo, hi, share in chunks]
+        if len(chunks) == n_motions:
+            return torch.stack(vals)
+        out = [torch.zeros((), device=xs[0].device)] * n_motions
+        for (m, *_), v in zip(chunks, vals):
+            out[m] = v
+        return torch.stack(out)
+
+    def skip_vae_noise(params, generator, n):
+        """Draw and drop the VAE noise of n jobs rendered by other ranks."""
+        mu = params.latent["mu"][0]
+        for _ in range(n):
+            torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                        device=generator.device)
 
     def loss_fn(params, aux, batch, step: int, arap_times=None,
                 generator: torch.Generator | None = None, mark=None,
@@ -222,12 +267,19 @@ def make_train_step(
         knn_cache = find_knn(params, aux) if stage >= "s2" else None
         times = torch.as_tensor(batch["times"]).tolist()
         lidx = [int(i) for i in torch.as_tensor(batch["latent_idx"]).tolist()]
+        if len(lidx) != n_loc:
+            raise ValueError(f"a batch of {len(lidx)} jobs where this rank "
+                             f"renders {n_loc} of {B}")
         vae_rng = generator if lcfg.vae else None
-        outs = [render(cfg, params, aux, batch["camera"][b], times[b], stage,
-                       lidx[b], width, height, bg, rng=vae_rng,
+        if vae_rng is not None:
+            skip_vae_noise(params, vae_rng, first)
+        outs = [render(cfg, params, aux, batch["camera"][i], times[i], stage,
+                       lidx[i], width, height, bg, rng=vae_rng,
                        knn_cache=knn_cache, capacity=capacity,
-                       mean2d_tap=tap if b == B - 1 else None)
-                for b in range(B)]
+                       mean2d_tap=tap if first + i == B - 1 else None)
+                for i in range(n_loc)]
+        if vae_rng is not None:
+            skip_vae_noise(params, vae_rng, B - rows.stop)
         if mark is not None:
             mark("renders")
         stack = lambda k: torch.stack([o[k] for o in outs])  # noqa: E731
@@ -242,10 +294,9 @@ def make_train_step(
         gt_m = (gt_msk.to(torch.float32) / 255.0)[:, None]
         if tuple(gt_m.shape[2:]) != (height, width):
             gt_m = resize_linear(gt_m, height, width)
-        imgs_m, gt_mm = per_motion(imgs), per_motion(gt)
         if lpips_fn is not None:
-            lp = torch.stack([torch.mean(lpips_fn(a, b))
-                              for a, b in zip(imgs_m, gt_mm)])
+            lp = motion_terms(lambda a, b: torch.mean(lpips_fn(a, b)),
+                              imgs, gt)
             if mark is not None:
                 mark("lpips")
         else:
@@ -257,37 +308,38 @@ def make_train_step(
         loss = lcfg.lambda_mse * torch.sum(mse_w * per_img_mse)
 
         nhwc = lambda x: x.permute(0, 2, 3, 1)               # noqa: E731
-        ssim_losses = torch.stack([1.0 - L.ssim(nhwc(a), nhwc(b))
-                                   for a, b in zip(imgs_m, gt_mm)])
+        ssim_losses = motion_terms(lambda a, b: 1.0 - L.ssim(a, b),
+                                   nhwc(imgs), nhwc(gt))
         loss = loss + lcfg.lambda_ssim * torch.sum(ssim_losses)
         if lpips_fn is not None:
             loss = loss + lcfg.lambda_lpips * torch.sum(lp)
-        mask_losses = torch.stack([torch.mean((a - b) ** 2) for a, b in
-                                   zip(per_motion(masks), per_motion(gt_m))])
+        mask_losses = motion_terms(lambda a, b: torch.mean((a - b) ** 2),
+                                   masks, gt_m)
         loss = loss + lcfg.lambda_mask * torch.sum(mask_losses)
 
-        m_idx = lidx[::per]
+        lidx_all = [int(i) for i in torch.as_tensor(
+            batch.get("latent_idx_all", lidx)).tolist()]
+        m_idx = lidx_all[::per]
         kl = torch.zeros((), device=dev)
         if lcfg.vae:
             mu = params.latent["mu"][m_idx]
             log_var = params.latent["log_var"][m_idx]
             kl = torch.sum(-0.5 * torch.sum(
                 1 + log_var - mu ** 2 - torch.exp(log_var), dim=-1))
-            loss = loss + lcfg.lambda_kl * kl
+            if lead:
+                loss = loss + lcfg.lambda_kl * kl
 
-        i_nhwc = per_motion(nhwc(imgs))
+        i_nhwc = nhwc(imgs)
         smooth_l = torch.zeros((), device=dev)
         if lcfg.add_depth:
-            d_nhwc = per_motion(nhwc(stack("depth")))
-            smooth_l = sum(L.edge_aware_smoothness(d, i)
-                           for d, i in zip(d_nhwc, i_nhwc))
+            smooth_l = torch.sum(motion_terms(
+                L.edge_aware_smoothness, nhwc(stack("depth")), i_nhwc))
             gate = float(step > lcfg.depth_reg_start_iter)
             loss = loss + gate * lcfg.lambda_smooth * smooth_l
         bilat_l = torch.zeros((), device=dev)
         if lcfg.add_normal:
-            n_nhwc = per_motion(nhwc(stack("normal")))
-            bilat_l = sum(L.bilateral_normal_smoothness(nn, i)
-                          for nn, i in zip(n_nhwc, i_nhwc))
+            bilat_l = torch.sum(motion_terms(
+                L.bilateral_normal_smoothness, nhwc(stack("normal")), i_nhwc))
             gate = float(step > lcfg.normal_reg_start_iter)
             loss = loss + gate * lcfg.lambda_bilateral * bilat_l
 
@@ -311,7 +363,8 @@ def make_train_step(
                 arap_l = arap_l + arap_mod.arap_loss(
                     base, d_xyz_t, valid=node_valid,
                     radius=lcfg.arap_radius, generator=generator)
-            loss = loss + gate * lcfg.lambda_arap * arap_l
+            if lead:
+                loss = loss + gate * lcfg.lambda_arap * arap_l
 
         ga_l = torch.zeros((), device=dev)
         if use_guidance and stage >= "s2" and lcfg.add_ga:
@@ -330,22 +383,45 @@ def make_train_step(
             lam = lcfg.lambda_ga1 if lcfg.ga_chamfer else lcfg.lambda_ga2
             loss = loss + lam * ga_l
 
-        mse = torch.mean(per_img_mse)
         metrics = {
-            "loss": loss, "mse": mse, "psnr": L.psnr(mse),
-            "ssim_loss": torch.mean(ssim_losses), "lpips": torch.mean(lp),
-            "mask_loss": torch.mean(mask_losses), "kl": kl, "arap": arap_l,
+            "loss": loss, "mse": torch.mean(per_img_mse),
+            "ssim_loss": ssim_losses, "lpips": lp,
+            "mask_loss": mask_losses, "kl": kl, "arap": arap_l,
             "ga": ga_l, "smooth": smooth_l, "bilateral": bilat_l,
             "overflow": torch.sum(stack("overflow")),
             "overflow_max": torch.max(stack("overflow_max")),
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = whole_batch_metrics(metrics)
+        for k in ("ssim_loss", "lpips", "mask_loss"):
+            metrics[k] = torch.mean(metrics[k])
+        metrics["psnr"] = L.psnr(metrics["mse"])
         vis_aux = {"radii": outs[-1]["radii"].detach(),
                    "visibility": outs[-1]["visibility_filter"],
                    "debug_render": imgs[0].detach(), "debug_gt": gt[0]}
         if mark is not None:
             mark("losses")
         return loss, (metrics, vis_aux)
+
+    def whole_batch_metrics(m: dict) -> dict:
+        """The metrics of the whole batch from each rank's: sums over
+        ranks (the per-motion vectors too, whose entries add up a motion
+        that straddles ranks), the mean MSE over all B images, the maximum
+        strip overflow; KL and ARAP are the same on every rank."""
+        summed = ("loss", "ssim_loss", "lpips", "mask_loss", "ga", "smooth",
+                  "bilateral", "overflow")
+        parts = [m["mse"] * (n_loc / B)] + [m[k] for k in summed]
+        flat = mesh_mod.all_reduce_(torch.cat(
+            [p.reshape(-1).to(torch.float64) for p in parts]), mesh)
+        out = dict(m)
+        off = 0
+        for k, p in zip(("mse",) + summed, parts):
+            out[k] = flat[off:off + p.numel()].view(p.shape).to(p.dtype)
+            off += p.numel()
+        out["overflow_max"] = mesh_mod.all_reduce_(
+            m["overflow_max"].clone(), mesh, op="max")
+        return out
 
     def train_step(state: TrainState, batch: dict, arap_times=None,
                    mark=None):
@@ -367,6 +443,9 @@ def make_train_step(
         with torch.no_grad():
             grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                      for k, v in leaves.items()}
+            if mesh is not None:
+                # the whole batch's gradient on every rank, before the guard
+                mesh_mod.sum_flat_(list(grads.values()), mesh)
             # one inf/nan leaf, or |g| so large that g*g overflows the
             # second moment, would poison Adam for good: such a step is
             # skipped (the reference's guard, taken before clipping)
@@ -403,10 +482,14 @@ def make_train_step(
                     and step <= lcfg.density_end_iter):
                 gtap = tap.grad if tap.grad is not None \
                     else torch.zeros_like(tap)
-                upd = G.update_max_radii(state.aux, vis_aux["radii"],
-                                         vis_aux["visibility"])
-                state.aux = G.add_densification_stats(
-                    upd, gtap, vis_aux["visibility"])
+                radii, vis = vis_aux["radii"], vis_aux["visibility"]
+                if mesh is not None:
+                    # the batch's last render lives on the last rank
+                    vis = vis.clone()
+                    mesh_mod.replicate((gtap, radii, vis), mesh,
+                                       src=mesh.size - 1)
+                upd = G.update_max_radii(state.aux, radii, vis)
+                state.aux = G.add_densification_stats(upd, gtap, vis)
         state.step = step
         if mark is not None:
             mark("adam")

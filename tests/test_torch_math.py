@@ -203,7 +203,8 @@ def _imports(path):
 def _port_files():
     files = [os.path.join(REPO, f) for f in
              ("chip_smoke.py", "bench_torch.py", "bench_train_torch.py",
-              "main_train_dimo_torch.py", "main_test_dimo_torch.py")]
+              "main_train_dimo_torch.py", "main_test_dimo_torch.py",
+              "eval_quality_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "dimo_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -221,7 +222,8 @@ def test_port_imports_neither_jax_nor_dimo_tpu():
                  "ops/neighbors.py", "models/gaussians.py",
                  "models/lpips.py", "utils/diagnostics.py", "cli.py",
                  "viz.py", "test_modes.py", "io/dataset.py", "io/colmap.py",
-                 "models/text.py"):
+                 "models/text.py", "io/native.py", "parallel/mesh.py",
+                 "parallel/check.py", "eval_quality.py"):
         assert name.replace("/", os.sep) in rel, name
     for path in files:
         for mod in _imports(path):

@@ -271,8 +271,8 @@ def test_fps_harness(ckpt, tmp_path):
     _, tt = trainers(ckpt, tmp_path)
     fps = ttm.run_test_fps(tt, rounds=3, size=128)
     assert fps > 0
-    tt.opt["spatial_parallel"] = 2
-    with pytest.raises(NotImplementedError, match="spatial_parallel"):
+    tt.opt["spatial_parallel"] = 2      # outside a group of two ranks
+    with pytest.raises(ValueError, match="spatial_parallel=2 needs one process"):
         ttm.run_test_fps(tt, rounds=3, size=128)
 
 

@@ -406,9 +406,10 @@ def test_device_batch_matches_host_batch(s2_pair):
 
 
 def test_lpips_and_data_parallel_are_refused(data):
-    """Data parallelism is refused until `parallel/mesh.py` is ported.
+    """Data parallelism outside a process group of its size is refused,
+    naming the launcher (`tests/test_torch_parallel.py` runs it in one).
     LPIPS no longer is: `test_train_step_once_trains_with_lpips`."""
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         port_trainer(data, data_parallel=2)
 
 

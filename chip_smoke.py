@@ -160,11 +160,18 @@
    K1 ch7 = K3 = its renders, with K2 = K4 in s2). Every frame is finite,
    every flagship s2 frame an object on white (mean 150-245, std > 10);
    after test_motion only the latent moved, after test_unaligned_motion
-   only the latent and TimeNet. Video writers whose library is missing
-   are replaced by recorders (one printed line says which ran for real).
-   Prints each mode's wall seconds, render_sequence's ms per frame (CUDA
-   events), the fps harness's frames/s, ms per fine-tuning step at 128^2
-   / 256^2 / 512^2, and the test CLI's dataset upload.
+   only the latent and TimeNet. Every writer is the real one, as a user
+   runs it: without imageio the mp4s go through OpenCV, and without
+   matplotlib the 3-D track videos through `viz._plot_3d_tracks_raster`
+   (one printed line says which). Each 3-D track video is checked: its
+   shape (21, 500, 500, 3), ink in every frame, and each control point's
+   jet colour within 2 px of where the port's own projection
+   (`viz._project_3d_tracks`) puts it, unless a marker drawn after it lies
+   within 4 px (those are counted and printed). Prints each mode's wall
+   seconds, render_sequence's ms per frame (CUDA events), the ms per 3-D
+   track frame (host clock), the fps harness's frames/s, ms per
+   fine-tuning step at 128^2 / 256^2 / 512^2, and the test CLI's dataset
+   upload.
 10. Drives this slice's paths (under `build/phase10/`). 10a: the native
    library must load (the file is printed); the flagship's PLY (100,000
    Gaussians) through the C++ codec and the numpy one, files and arrays
@@ -187,7 +194,8 @@
    fps render (ch3, 512^2, capacity 512) and the ch7 render sharded over
    both ranks, bit-equal to the unsharded render. 10c: `eval_quality_torch.py
    --fast --iters 30,20` (LPIPS on): the JSON keys, a finite PSNR, scored
-   at the trainer's live capacity, the video step's outcome printed.
+   at the trainer's live capacity, and its videos written (`videos_ok`
+   true, `videos_error` None).
    `python3 chip_smoke.py --phase 10` builds and runs this phase alone
    (a development run: no result line).
 11. Runs `bench_torch.py`'s functions on a fresh flagship scene with
@@ -2383,8 +2391,56 @@ def quality_phase(dev, root: str) -> dict:
         fail(f"phase 10c: {res}")
     if seen.get("live") != res["eval_capacity"] or seen["used"] != seen["live"]:
         fail(f"phase 10c: scored at {seen}, reported {res['eval_capacity']}")
+    if res["videos_ok"] is not True or res["videos_error"] is not None:
+        fail(f"phase 10c: videos_ok {res['videos_ok']}, videos_error "
+             f"{res['videos_error']}")
     res["wall_s"] = time.time() - t_phase
     return res
+
+
+def check_track_video(vid, tracks, visibles, figsize, what: str) -> int:
+    """One 3-D track video of phase 9: its shape, ink in every frame, and
+    each visible control point's jet colour within 2 px of the pixel on
+    which the port's projection (`viz._project_3d_tracks`) centres its
+    marker. A point may be hidden by a marker drawn after it (farther
+    first): one whose colour is missing is excused only if such a marker's
+    centre lies within 4 px (twice the marker's radius). Returns how many
+    points were excused."""
+    import numpy as np
+    from dimo_tpu_torch import viz
+    f, n, _ = tracks.shape
+    want = (f, int(round(figsize[1] * 100)), int(round(figsize[0] * 100)), 3)
+    if vid.shape != want or vid.dtype != np.uint8:
+        fail(f"{what}: 3-D track video {vid.shape} {vid.dtype}, expected "
+             f"{want} uint8")
+    ink = [int((fr < 250).any(-1).sum()) for fr in vid]
+    if min(ink) == 0:
+        fail(f"{what}: a 3-D track frame has no ink: {ink}")
+    if visibles is None:
+        visibles = np.ones((f, n), bool)
+    col, row, depth = viz._project_3d_tracks(tracks, figsize)
+    cx = np.floor(col + 0.5).astype(np.int64)
+    cy = np.floor(row + 0.5).astype(np.int64)
+    colors = viz._colormap_jet(n).astype(np.uint8)
+    d = np.arange(-2, 3)
+    excused = 0
+    for fi in range(f):
+        ys = np.clip(cy[fi][:, None, None] + d[None, :, None], 0, want[1] - 1)
+        xs = np.clip(cx[fi][:, None, None] + d[None, None, :], 0, want[2] - 1)
+        found = (vid[fi][ys, xs] == colors[:, None, None]).all(-1).any((1, 2))
+        vis = np.flatnonzero(visibles[fi])
+        rank = np.full(n, -1)
+        rank[vis[np.argsort(-depth[fi, vis], kind="stable")]] = \
+            np.arange(len(vis))
+        for i in vis[~found[vis]]:
+            later = rank > rank[i]
+            if not (np.hypot(cx[fi] - cx[fi, i], cy[fi] - cy[fi, i])[later]
+                    <= 4).any():
+                fail(f"{what}: frame {fi} control point {i} at "
+                     f"({col[fi, i]:.2f}, {row[fi, i]:.2f}) has no pixel of "
+                     f"its colour {colors[i].tolist()} within 2 px")
+            excused += 1
+    return excused
 
 
 def test_modes_phase(dev, root: str) -> dict:
@@ -2448,24 +2504,27 @@ def test_modes_phase(dev, root: str) -> dict:
         fail("the synthetic motion does not read back through load_videos")
     motion_s = time.time() - t0
 
-    # writers: the real ones where their library is here, else recorders
-    # that keep the frames for the checks below
+    # the real writers, each call noted; the 3-D track videos timed and
+    # checked
     videos, frame_stats, seq_ms, ft, uploads = {}, {"n": 0}, [], {}, {}
+    plots_3d = []
     mode_now = ["setup"]
 
     def write_video(path, frames, fps=8):
         frames = [np.asarray(f) for f in frames]
         videos[os.path.basename(path)] = (len(frames), frames[0].shape)
-        if have["imageio"] or have["cv2"]:
-            real["write_video"](path, frames, fps)
+        real["write_video"](path, frames, fps)
 
     def plot_3d_tracks(tracks, visibles=None, tracks_leave_trace=8,
                        figsize=(5, 5)):
-        if have["matplotlib"]:
-            return real["plot_3d_tracks"](tracks, visibles, tracks_leave_trace,
-                                          figsize)
-        return np.zeros((tracks.shape[0], int(figsize[1] * 100),
-                         int(figsize[0] * 100), 3), np.uint8)
+        t0 = time.perf_counter()
+        vid = real["plot_3d_tracks"](tracks, visibles, tracks_leave_trace,
+                                     figsize)
+        ms = (time.perf_counter() - t0) * 1e3 / len(tracks)
+        hidden = check_track_video(vid, tracks, visibles, figsize,
+                                   f"phase 9 {mode_now[0]}")
+        plots_3d.append((mode_now[0], tracks.shape, ms, hidden))
+        return vid
 
     def to_u8(img):
         if not bool(torch.isfinite(img).all()):
@@ -2548,13 +2607,12 @@ def test_modes_phase(dev, root: str) -> dict:
                    "run_test_unaligned_motion",
                    {"iters_a": FT_ITERS_A, "iters_b": FT_ITERS_B},
                    lambda k: k.startswith(("latent.", "timenet.")), True))]
-    print("phase 9 writers: " + ", ".join(
-        f"{w} {'real' if ok else 'recorded (no ' + lib + ')'}" for w, ok, lib in (
-            ("write_video", have["imageio"] or have["cv2"], "imageio/cv2"),
-            ("plot_3d_tracks", have["matplotlib"], "matplotlib"),
-            ("trajectory_image/frames, interactive_3d_html", have["cv2"],
-             "cv2"), ("trajectory PNG", have["PIL"], "PIL")))
-          + f"; imageio {'present' if have['imageio'] else 'absent, so mp4s go through OpenCV'}")
+    print("phase 9 writers, all real: mp4s through "
+          + ("imageio, else OpenCV" if have["imageio"]
+             else "OpenCV (no imageio)")
+          + ", trajectories through OpenCV and PIL, plot_3d_tracks through "
+          + ("matplotlib" if have["matplotlib"] else
+             "viz._plot_3d_tracks_raster (no matplotlib)"))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     base = ["--config", test_cfg, f"input_folder={data}",
             f"save_path={os.path.join(root, 'run')}",
@@ -2652,6 +2710,7 @@ def test_modes_phase(dev, root: str) -> dict:
             "fps": results["fps"], "res_ms": res_ms, "uploads": uploads,
             "motion_s": motion_s, "frames": frame_stats["n"],
             "videos": len(videos), "seq_ms_by_mode": by_mode,
+            "plots_3d": plots_3d,
             "seq_ms_per_frame": by_mode[f"default@{side}"],
             "ft": {k: {"moved": len(v["moved"]), "losses": v["losses"],
                        "step_ms": v["step_ms"]} for k, v in ft.items()},
@@ -3591,6 +3650,12 @@ def main() -> None:
     print("phase 9 render_sequence ms/frame (CUDA events, KNN once a "
           "sequence, frames copied to the host): " + " ".join(
               f"{k}={v:.2f}" for k, v in p9["seq_ms_by_mode"].items()))
+    p3 = p9["plots_3d"]
+    print(f"phase 9 3-D track videos ({len(p3)}, every one checked; "
+          "(frames, control points), host clock): ms per 3-D frame "
+          + " ".join(f"{m}{list(sh[:2])}={ms:.2f}" for m, sh, ms, _ in p3)
+          + f"; points hidden by a later marker {sum(h for *_, h in p3)} of "
+          f"{sum(sh[0] * sh[1] for _, sh, _, _ in p3)}; {card}")
     ft_ms = p9["ft"]["run_test_motion"]["step_ms"]
     print(f"phase 9 fine-tuning (latent only, LPIPS on, 1 x 5 x 4 = 20 "
           f"renders a step): ms/step at 128^2 / 256^2 / 512^2 "
@@ -3799,6 +3864,8 @@ def main() -> None:
                       "train_step_spread": spread,
                       "test_modes_wall_s": p9["walls"],
                       "test_modes_seq_ms_per_frame": p9["seq_ms_by_mode"],
+                      "test_modes_3d_ms_per_frame": [
+                          [m, ms] for m, _, ms, _ in p9["plots_3d"]],
                       "test_fps_harness": p9["fps"],
                       "finetune_step_ms": p9["res_ms"],
                       "test_cli_uploads": p9["uploads"],

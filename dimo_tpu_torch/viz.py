@@ -3,10 +3,20 @@
 Copy of `dimo_tpu/viz.py` (the reference's `utils/vis_utils.py` +
 `src/helpers.py:142-241` track rendering and the top-level imageio/cv2
 export calls). numpy on the host: callers pass numpy arrays (the test
-modes copy frames and points off the device first). OpenCV, matplotlib
-and imageio are imported inside the functions that use them; the track
-colours (`_colormap_jet`) are matplotlib's "jet" computed with numpy, so
-only `plot_3d_tracks` needs matplotlib.
+modes copy frames and points off the device first). Libraries are
+imported inside the functions that use them, and each route says which
+it needs:
+
+  * the track colours (`_colormap_jet`) are matplotlib's "jet" computed
+    with numpy, and `project_points` / `interactive_3d_html` are numpy;
+  * `trajectory_image`, `trajectory_frames` and `plot_2d_tracks` draw
+    with OpenCV;
+  * `plot_3d_tracks` draws with matplotlib where it imports, as the
+    reference does, and otherwise through `_plot_3d_tracks_raster`:
+    mplot3d's default view recomputed with numpy, drawn with OpenCV;
+  * `write_video` writes an mp4 through imageio, else through OpenCV, and
+    as a last resort a GIF through imageio, or through PIL where imageio
+    does not import.
 """
 from __future__ import annotations
 
@@ -135,8 +145,13 @@ def plot_2d_tracks(frames: np.ndarray, tracks: np.ndarray,
 def plot_3d_tracks(tracks: np.ndarray, visibles: np.ndarray | None = None,
                    tracks_leave_trace: int = 8, figsize=(5, 5)) -> np.ndarray:
     """Matplotlib 3D track video (reference `utils/vis_utils.py:259-314`).
-    tracks: (F, N, 3) -> (F, H, W, 3) uint8."""
-    import matplotlib
+    tracks: (F, N, 3) -> (F, H, W, 3) uint8. Without matplotlib, the same
+    figure through `_plot_3d_tracks_raster`."""
+    try:
+        import matplotlib
+    except ImportError:
+        return _plot_3d_tracks_raster(tracks, visibles, tracks_leave_trace,
+                                      figsize)
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -168,6 +183,138 @@ def plot_3d_tracks(tracks: np.ndarray, visibles: np.ndarray | None = None,
         frames.append(buf.reshape(h, w, 4)[..., :3].copy())
         plt.close(fig)
     return np.stack(frames)
+
+
+# The figure `plot_3d_tracks` draws with matplotlib (3.10's
+# `mpl_toolkits/mplot3d/axes3d.py`, `proj3d.py` and `art3d.py`): the
+# default figure dpi and subplot box, one Axes3D at its default view
+# (elev 30, azim -60, roll 0, perspective, focal length 1, distance 10,
+# box aspect 4:4:3), whose 2-D view limits are (-0.95, 0.9) / distance.
+_DPI = 100.0
+_SUBPLOT = (0.125, 0.11, 0.9, 0.88)            # left, bottom, right, top
+_ELEV, _AZIM, _DIST, _FOCAL = 30.0, -60.0, 10.0, 1.0
+_BOX = (np.array([4.0, 4.0, 3.0]) * 1.8294640721620434 * 25 / 24
+        / np.linalg.norm([4.0, 4.0, 3.0]))
+_VIEW = (-0.95 / _DIST, 0.9 / _DIST)
+# `ax.scatter(..., s=3)`'s radius in pixels: a marker of diameter sqrt(3)
+# pt with a 1 pt edge of its own colour
+_MARKER_R_PX = (np.sqrt(3.0) / 2 + 0.5) * _DPI / 72.0
+_SHIFT = 4                                     # OpenCV's fractional bits
+
+
+def _nonsingular(lo: float, hi: float, expander: float = 0.05,
+                 tiny: float = 1e-15) -> tuple[float, float]:
+    """matplotlib's widening of equal axis limits
+    (`transforms.nonsingular` with the tick locator's expander 0.05)."""
+    lo, hi = float(lo), float(hi)
+    if hi - lo <= max(abs(lo), abs(hi)) * tiny:
+        if hi == 0 and lo == 0:
+            return -expander, expander
+        return lo - expander * abs(lo), hi + expander * abs(hi)
+    return lo, hi
+
+
+def _mplot3d_proj(lims) -> np.ndarray:
+    """(4, 4) `Axes3D.get_proj()` at the default view for axis limits
+    ((x0, x1), (y0, y1), (z0, z1)): world box, look-at, perspective."""
+    span = np.array([hi - lo for lo, hi in lims]) / _BOX
+    world = np.eye(4)
+    world[:3, :3] = np.diag(1.0 / span)
+    world[:3, 3] = [-lo / d for (lo, _), d in zip(lims, span)]
+    centre = 0.5 * _BOX
+    e, a = np.deg2rad(_ELEV), np.deg2rad(_AZIM)
+    ps = np.array([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)])
+    w = ps / np.linalg.norm(ps)                # out of the screen
+    u = np.cross([0.0, 0.0, 1.0], w)
+    u /= np.linalg.norm(u)                     # to the right
+    v = np.cross(w, u)                         # up
+    rot, move = np.eye(4), np.eye(4)
+    rot[:3, :3] = [u, v, w]
+    move[:3, 3] = -(centre + _DIST * ps * _FOCAL)
+    near, far = -_DIST, _DIST
+    persp = np.array([[_FOCAL, 0, 0, 0], [0, _FOCAL, 0, 0],
+                      [0, 0, (near + far) / (near - far),
+                       -2 * near * far / (near - far)],
+                      [0, 0, -1, 0]])
+    return persp @ rot @ move @ world
+
+
+def _axes_box(wpx: int, hpx: int) -> tuple[float, float, float, float]:
+    """(x0, y0, width, height) in pixels, y up: the default subplot box
+    made square and centred (`Axes3D.apply_aspect`)."""
+    left, bottom, right, top = _SUBPLOT
+    w, h = right - left, top - bottom
+    fig_aspect = hpx / wpx
+    bw, bh = w, w / fig_aspect
+    if bh > h:
+        bw, bh = h * fig_aspect, h
+    return ((left + (w - bw) / 2) * wpx, (bottom + (h - bh) / 2) * hpx,
+            bw * wpx, bh * hpx)
+
+
+def _project_3d_tracks(tracks: np.ndarray, figsize=(5, 5)):
+    """Where `plot_3d_tracks`' figure puts each point of (F, N, 3) tracks:
+    (col, row, depth), each (F, N), in pixels from the top-left corner of
+    the (H, W) image (a pixel's centre at +0.5) and in mplot3d's projected
+    depth (larger is farther)."""
+    wpx, hpx = int(round(figsize[0] * _DPI)), int(round(figsize[1] * _DPI))
+    flat = np.asarray(tracks, np.float64).reshape(-1, 3)
+    lims = [_nonsingular(lo, hi) for lo, hi in zip(flat.min(0), flat.max(0))]
+    hom = np.concatenate([flat, np.ones_like(flat[:, :1])], 1)
+    clip = hom @ _mplot3d_proj(lims).T
+    ndc = clip[:, :3] / clip[:, 3:]
+    x0, y0, bw, bh = _axes_box(wpx, hpx)
+    scale = 1.0 / (_VIEW[1] - _VIEW[0])
+    col = x0 + (ndc[:, 0] - _VIEW[0]) * scale * bw
+    row = hpx - (y0 + (ndc[:, 1] - _VIEW[0]) * scale * bh)
+    shape = np.shape(tracks)[:-1]
+    return col.reshape(shape), row.reshape(shape), ndc[:, 2].reshape(shape)
+
+
+def _plot_3d_tracks_raster(tracks: np.ndarray,
+                           visibles: np.ndarray | None = None,
+                           tracks_leave_trace: int = 8,
+                           figsize=(5, 5)) -> np.ndarray:
+    """`plot_3d_tracks`' figure without matplotlib: the points projected as
+    mplot3d projects them (`_project_3d_tracks`), drawn with OpenCV's
+    antialiased polylines and filled circles on white, in matplotlib's
+    order: every visible track's trailing segment in track order (a
+    one-point segment draws nothing; OpenCV's 1 px antialiased line stands
+    for the 1 pt = 1.39 px one, its ink within a pixel of Agg's), then the
+    current points farthest first (`computed_zorder` sorts the scatters,
+    not the lines), each centred on the pixel Agg snaps a marker to, all
+    clipped to the axes' box. tracks: (F, N, 3) -> (F, H, W, 3) uint8."""
+    import cv2
+    f, n, _ = tracks.shape
+    if visibles is None:
+        visibles = np.ones((f, n), bool)
+    wpx, hpx = int(round(figsize[0] * _DPI)), int(round(figsize[1] * _DPI))
+    col, row, depth = _project_3d_tracks(tracks, figsize)
+    one = 1 << _SHIFT
+    # OpenCV puts a pixel's centre at its integer coordinate, Agg at +0.5
+    pts = np.round(np.stack([col - 0.5, row - 0.5], -1) * one).astype(np.int32)
+    dots = np.stack([np.floor(col + 0.5), np.floor(row + 0.5)],
+                    -1).astype(np.int32) * one
+    radius = int(round(_MARKER_R_PX * one))
+    colors = [tuple(int(c) for c in rgb) for rgb in _colormap_jet(n)]
+    x0, y0, bw, bh = _axes_box(wpx, hpx)
+    c0, c1 = int(np.floor(x0 + 0.5)), int(np.floor(x0 + bw + 0.5))
+    r0, r1 = int(np.floor(hpx - y0 - bh + 0.5)), int(np.floor(hpx - y0 + 0.5))
+    frames = np.full((f, hpx, wpx, 3), 255, np.uint8)
+    for fi in range(f):
+        img = frames[fi]
+        start = max(0, fi - tracks_leave_trace)
+        vis = np.flatnonzero(visibles[fi])
+        if fi > start:
+            for i in vis:
+                seg = np.ascontiguousarray(pts[start:fi + 1, i])
+                cv2.polylines(img, [seg], False, colors[i], 1, cv2.LINE_AA,
+                              _SHIFT)
+        for i in vis[np.argsort(-depth[fi, vis], kind="stable")]:
+            cv2.circle(img, (int(dots[fi, i, 0]), int(dots[fi, i, 1])), radius,
+                       colors[i], -1, cv2.LINE_AA, _SHIFT)
+        img[:r0], img[r1:], img[:, :c0], img[:, c1:] = 255, 255, 255, 255
+    return frames
 
 
 def interactive_3d_html(tracks: np.ndarray, point_size: float = 2.5,
@@ -231,7 +378,8 @@ setInterval(()=>{{if(run)fi=(fi+1)%F;draw();}},125);
 
 def write_video(path: str, frames, fps: int = 8) -> None:
     """mp4 via imageio-ffmpeg when available, else cv2's bundled codec
-    (this image ships no ffmpeg plugin), else a .gif fallback."""
+    (this image ships no ffmpeg plugin), else a .gif fallback: imageio's,
+    or PIL's where imageio does not import."""
     frames = [np.asarray(f) for f in frames]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     try:
@@ -253,6 +401,13 @@ def write_video(path: str, frames, fps: int = 8) -> None:
             return
     except Exception:
         pass
-    import imageio
-    imageio.mimwrite(os.path.splitext(path)[0] + ".gif", frames,
-                     duration=1000.0 / fps)
+    gif = os.path.splitext(path)[0] + ".gif"
+    try:
+        import imageio
+    except ImportError:
+        from PIL import Image
+        imgs = [Image.fromarray(f).convert("RGB") for f in frames]
+        imgs[0].save(gif, save_all=True, append_images=imgs[1:],
+                     duration=1000.0 / fps, loop=0)
+        return
+    imageio.mimwrite(gif, frames, duration=1000.0 / fps)

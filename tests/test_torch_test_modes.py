@@ -26,6 +26,7 @@ Tolerances:
     mosaics and the blends: equal.
 """
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -287,3 +288,42 @@ def test_write_mosaic_matches_jax(written, tmp_path, n_clips):
     for name, ref in written["jax"].items():
         assert np.array_equal(written["torch"][name], ref)
         assert ref.shape[-1] == 3
+
+
+def test_default_test_without_matplotlib_or_imageio(ckpt, tmp_path,
+                                                    monkeypatch):
+    """The card's machine has neither library: the default mode runs
+    through the real writers (OpenCV's mp4), and the 3-D track video is
+    drawn by `viz._plot_3d_tracks_raster`, once for each motion."""
+    for name in [m for m in sys.modules if m.split(".")[0] in
+                 ("matplotlib", "mpl_toolkits", "imageio")]:
+        monkeypatch.delitem(sys.modules, name)
+    for name in ("matplotlib", "mpl_toolkits", "imageio"):
+        monkeypatch.setitem(sys.modules, name, None)
+    raster, drawn = tviz._plot_3d_tracks_raster, []
+
+    def spy(tracks, *a):
+        drawn.append(tracks.shape)
+        return raster(tracks, *a)
+    monkeypatch.setattr(tviz, "_plot_3d_tracks_raster", spy)
+    _, tt = trainers(ckpt, tmp_path)
+    imgs = ttm.run_default_test(tt, render_type="fixed", do_cpts=True)
+    assert len(imgs) == 2 and len(drawn) == 2
+    import cv2
+    out = tmp_path / "torch"
+    for motion in ("motion_00", "motion_01"):
+        assert (out / f"trajectory_3d_{motion}.html").stat().st_size > 0
+        cap = cv2.VideoCapture(str(out / f"trajectory_3d_{motion}.mp4"))
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(frame)
+        cap.release()
+        assert len(frames) == 5 and frames[0].shape == (500, 500, 3)
+        for i, f in enumerate(frames):
+            assert (f < 250).any(-1).sum() > 100, f"{motion} frame {i}: no ink"
+    assert {"all_traj_imgs_3d.mp4", "all_render_imgs.mp4",
+            "run_motion_00_s2_fixed.mp4"} <= set(os.listdir(out))
+    assert not [n for n in os.listdir(out) if n.endswith(".gif")]

@@ -5,7 +5,8 @@
 
 1. Builds the port's CUDA kernels (K1 strip compositor and K3 its
    backward, K2 LBS column gather and K4 its backward, K5 the row-layout
-   gather and K6 its backward, K7 the binning's window readout, K8 tile
+   gather and K6 its backward, whose sorted route is also the strip
+   path's row scatter, K7 the binning's window readout, K8 tile
    compositor and K9 its backward) from `dimo_tpu_torch/csrc/` with nvcc,
    one process per source, all started at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -22,22 +23,28 @@
    and N inside lists, capacity 1000, 128^2 and 1024^2. It prints the
    strip lists' histogram, K1/K3's resident blocks per SM and the
    pixel-entry pairs with alpha > 0 that their bounds count;
-   K4 at 1e-5 of each entry's sum of |g| (shared atomics add in any
-   order), run twice at the LBS shape (the two runs' difference printed),
-   on K2's edge cases, a misaligned g view, every index on one column,
-   S = 0, and M = 5,189 and 5,190 at D = 11 so both of its routes run (K2
-   bit-exact there, and the pair through autograd at 5,190), with its
-   route, grid, ptxas's registers and resident blocks per SM;
+   K4 bit-equal to its plain version (which sums in the kernel's fixed
+   order, given the card's plan for the table route) and to itself on a
+   second run, at the LBS shape, on K2's edge cases, a misaligned g view,
+   every index on one column, S = 0, and M = 5,189 and 5,190 at D = 11 so
+   both of its routes run (K2 bit-exact there, and the pair through
+   autograd at 5,190), with its route, grid, ptxas's registers and
+   resident blocks per SM;
    K7 bit-exact, at the flagship's sorted pairs and window starts
    (capacity 1024), with all starts odd or even, at capacities 63, 64 and
    2,050 with windows that start at or overrun the array end, and for a
    single bin, and the flagship's strip lists by both readout routes
    (`tiles.WINDMA` off and on) equal in all four outputs; K5 bit-exact
-   and K6 at 1e-5 of each entry's sum of |g|, at the LBS shape ((512, 11)
-   table, 400,000 sites; K6 run twice there, its bit-identity printed), on the
+   and K6 bit-equal to its plain version and to itself on a second run,
+   as K4, at the LBS shape ((512, 11) table, 400,000 sites), on the
    edge cases of `rows_edge_cases` (both of K6's routes) and on a
    (100000, 16) table, with ptxas's registers and the resident blocks per
-   SM of K5 and K6's two kernels; K8
+   SM of K5 and K6's kernels; the strip path's row scatter
+   (`gather_rows_bwd`, K6's sorted route) bit-equal to its plain version
+   and to itself on a second run at the flagship frame's strip lists (K3's
+   slot gradients, 256 x 1,024 x 16 into the (100001, 16) table), with
+   indices -1 and N+1 among them, every slot on one row and no slot,
+   timed beside `zeros + index_add_`; K8
    7-channel bit-exact and its 4- and 3-channel variants bit-equal to
    their plain versions and to the 7-channel's first planes, K9 per slab
    slot at 1e-4 of each lane's max |grad|, zero past each count and on
@@ -78,16 +85,19 @@
    guidance and both smoothness terms on, from step 300 (every gate
    open); one warm-up and 2 timed steps. Checks a finite loss, no skipped
    step, every group with a learning rate moved, and K1 ch7 = K2 = K3 =
-   K4 = 16 launches per step (counters zeroed just before, read just
-   after). Prints the step time and its CUDA-event split, and how far
-   the loss and every gradient leaf of one step differ when computed twice
-   from the same state (`step_spread`).
+   K4 = the row scatter = 16 launches per step (counters zeroed just
+   before, read just after). Prints the step time and its CUDA-event
+   split. The loss and
+   every gradient leaf of one step computed twice from the same state
+   (`step_spread`) must be the same bits.
 6b. The same path with LPIPS on, as the reference trains by default: the
    seeded random-VGG fallback at lambda 1000, its convolutions in float32;
    one warm-up and 2 timed steps beside phase 6's, the split with an
    `lpips` mark, the peak memory. Checks a finite loss, no skipped step, a
    non-zero LPIPS term, every group with a learning rate moved, and K1 ch7
-   = K2 = K3 = K4 = 16 launches per step. Then LPIPS in TF32 against
+   = K2 = K3 = K4 = the row scatter = 16 launches per step, and the same
+   bits from one step computed twice (`step_spread`, LPIPS on). Then LPIPS
+   in TF32 against
    float32 on one motion's 4 renders and their GT (`lpips_precision`):
    prints the differences and whether TF32 meets LPIPS_TF32_DIST_REL and
    LPIPS_TF32_GRAD_REL_L2 (it did not, so float32 ships), checks that
@@ -115,9 +125,16 @@
    last snapshot in a fresh `Trainer`, and the final `s2/` checkpoint
    read back all happen, and each is asserted from the trainer's state.
    Then s2 steps at 256^2 and 512^2 through `train_step_once`. Every
-   launch counter is zeroed just before and read just after: K7 and K1
-   ch7 and K3 must equal the phase's render count, K2 and K4 its stage-2
-   render count.
+   launch counter is zeroed just before and read just after: K7, K1 ch7,
+   K3 and the row scatter must equal the phase's render count, K2 and K4
+   its stage-2 render count.
+7b. Two fresh `Trainer`s with one seed run the same cut
+   `train_dynamic` one after the other (phase 7's videos, widths, cadence
+   keys and LPIPS, no snapshots, TWIN_ITERS: the densifies at 4 and 8,
+   the opacity reset, the FPS anneal, finish_s1's prune and s1 -> s2):
+   every step's loss, every parameter and Adam moment, the active masks
+   and every checkpoint file must be the same bits
+   (`utils/diagnostics.py::run_fingerprint`); launches counted.
 8. Drives the tile-compositor path at full width (the flagship scene,
    100k Gaussians, 512 control points, 512^2, capacity 1024 per tile,
    nothing cut): latent -> TimeNet -> LBS (K2) -> project ->
@@ -204,9 +221,16 @@
    and the fps harness's frames/s beside it.
 12. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
    both channel variants and K8 in all three; `launches` of K1 ch7, K2, K3
-   and K4 from phase 6b, the main path, and each kernel's launches in
-   every phase-9 and phase-10 run), the card's name and power limit, and
-   last the device line.
+   and K4 and the row scatter from phase 6b, the main path, and each
+   kernel's launches in every phase-9 and phase-10 run), the card's name
+   and power limit, and last the device line.
+
+Development runs that print and fail nothing, run alone after the build:
+`--phase determinism` (phase 6's and 6b's step spread, LPIPS's and SSIM's
+input gradients twice, phase 7b's twins) and `--phase timing` (K4, K6
+and the row scatter's ms, the s2 step's ms LPIPS off and on). Both call
+only entry points that older trees of the port have too, so the same
+script copied into an older checkout measures that tree.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -285,6 +309,11 @@ TRAINER_OPT = dict(
     densification_interval_s2=8, densify_opacity_threshold_s2=0.045)
 SNAPSHOT_EVERY = 3             # s2 snapshots after 0, 3, 6, 9 iterations
 INTERRUPT_AT = ("s2", 5)       # the first run is cut here, after a snapshot
+# phase 7b, the twin trainers: TRAINER_OPT's cadence cut to the fewest
+# iterations that cross the densifies at 4 and 8, the opacity reset at 10,
+# the FPS anneal at 12, finish_s1's prune and s1 -> s2
+TWIN_ITERS = (13, 2)           # s1, s2 iterations
+TIMING_STEPS = 4               # s2 steps timed a variant by `--phase timing`
 # phase 9: the test CLI on the flagship checkpoint at test_config.yaml's
 # widths; the depth cuts (the reference's in brackets)
 PHASE9_MOTIONS = 4             # the flagship's latents
@@ -510,8 +539,9 @@ def k2_edge_cases(dev, table_t, nn_idx) -> list[str]:
 
 
 def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
-    """K4 within 1e-5 of each entry's sum of |g| against its plain version
-    beyond the LBS shape: K2's cases (a ragged last block, S % 4 != 0, an
+    """K4 bit-equal to its plain version (summed in the kernel's order,
+    given the card's plan) and to itself on a second run, beyond the LBS
+    shape: K2's cases (a ragged last block, S % 4 != 0, an
     idx view one element off 16-byte alignment, a transposed idx, indices
     -1 and M, M = 1,024), a g view one element off 16-byte alignment,
     every index on one column, S = 0, and M = 5,189 and 5,190 at D = 11,
@@ -529,15 +559,18 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
         return torch.randint(lo, mm if hi is None else hi, shape,
                              generator=gen, dtype=torch.int32).to(dev)
 
-    def check(got, g, idx, mm, name):
-        ref = sg.gather_small_cols_bwd_plain(g, idx, mm)
-        mass = sg.gather_small_cols_bwd_plain(g.abs(), idx, mm)
+    def check(got, g, idx, mm, name, again=None):
+        route, blocks, per = sg.cols_bwd_plan(
+            d, mm, idx.numel(), lambda smem: sg.cols_occupancy(dev, smem)[0],
+            sms)
+        ref = sg.gather_small_cols_bwd_plain(
+            g, idx, mm, (blocks, per) if route == "tables" else None)
         torch.cuda.synchronize()
-        if got.shape != (d, mm) or not torch.isfinite(got).all() or bool(
-                ((got - ref).abs() > 1e-5 * mass + 1e-30).any()):
-            fail(f"K4 disagrees with its plain version ({name}): max |err| "
-                 f"{float((got - ref).abs().max()) if got.numel() else 0} "
-                 f"(tol 1e-5 of each entry's sum of |g|)")
+        if got.shape != (d, mm) or not torch.equal(got, ref) or (
+                again is not None and not torch.equal(got, again)):
+            fail(f"K4 disagrees with its plain version or itself ({name}): "
+                 f"max |err| "
+                 f"{float((got - ref).abs().max()) if got.numel() else 0}")
 
     flat = nn_idx.reshape(-1)
     bad = nn_idx.clone()
@@ -572,7 +605,8 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
             g = buf[1:].view(g.shape)
             if g.data_ptr() % 16 == 0:
                 fail(f"K4 edge case {name}: the g view is aligned")
-        check(sg.gather_small_cols_bwd(g, idx, mm), g, idx, mm, name)
+        check(sg.gather_small_cols_bwd(g, idx, mm), g, idx, mm, name,
+              sg.gather_small_cols_bwd(g, idx, mm))
         if mm > 1024:
             tab = torch.randn((d, mm), generator=gen).to(dev)
             got = sg.gather_small_cols(tab, idx)
@@ -598,12 +632,14 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
 
 
 def rows_edge_cases(dev) -> list[str]:
-    """K5 bit-exact and K6 within 1e-5 of each entry's sum of |g| against
-    their plain versions beyond the LBS shape: S % 4 != 0, idx and g as
-    views one element off 16-byte alignment, D in {1, 3, 4, 11, 16, 33},
-    M = 1, M x D just under and just over K6's shared-memory limit (so
-    both of K6's routes run), every index on one row, indices -1 and M
-    only, and S = 0. Returns the cases' names, each with K6's route."""
+    """K5 bit-exact against its plain version, and K6 bit-equal to its
+    plain version (summed in the kernel's order, given the card's plan)
+    and to itself on a second run, beyond the LBS shape: S % 4 != 0, idx
+    and g as views one element off 16-byte alignment, D in {1, 3, 4, 11,
+    16, 33}, M = 1, M x D just under and just over K6's shared-memory
+    limit (so both of K6's routes run), every index on one row, indices
+    -1 and M only, and S = 0. Returns the cases' names, each with K6's
+    route."""
     import torch
     from dimo_tpu_torch.ops import smallgather as sg
     gen = torch.Generator().manual_seed(18)
@@ -653,18 +689,18 @@ def rows_edge_cases(dev) -> list[str]:
         if got.shape != ref.shape or not torch.equal(got, ref):
             fail(f"K5 disagrees with its plain version ({name}): max |err| "
                  f"{float((got - ref).abs().max()) if got.numel() else 0}")
+        route, blocks, per = sg.rows_bwd_plan(
+            m, d, idx.shape[0], lambda smem: sg.rows_occupancy(dev, smem)[1],
+            sms)
         got = sg.gather_small_bwd(g_d, idx_d, m)
-        ref = sg.gather_small_bwd_plain(g_d, idx_d, m)
-        mass = sg.gather_small_bwd_plain(g_d.abs(), idx_d, m)
+        again = sg.gather_small_bwd(g_d, idx_d, m)
+        ref = sg.gather_small_bwd_plain(
+            g_d, idx_d, m, (blocks, per) if route == "tables" else None)
         torch.cuda.synchronize()
-        if got.shape != (m, d) or not torch.isfinite(got).all() or bool(
-                ((got - ref).abs() > 1e-5 * mass + 1e-30).any()):
-            fail(f"K6 disagrees with its plain version ({name}): max |err| "
-                 f"{float((got - ref).abs().max())} (tol 1e-5 of each "
-                 f"entry's sum of |g|)")
-        route = sg.rows_bwd_plan(m, d, idx.shape[0],
-                                 lambda smem: sg.rows_occupancy(dev, smem)[1],
-                                 sms)[0]
+        if got.shape != (m, d) or not torch.equal(got, ref) or \
+                not torch.equal(got, again):
+            fail(f"K6 disagrees with its plain version or itself ({name}): "
+                 f"max |err| {float((got - ref).abs().max())}")
         names.append(f"{name} [K6 {route}]")
     return names
 
@@ -846,11 +882,11 @@ def strip_edge_cases(dev, lists_at) -> list[str]:
 def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
     """Phase 2f: K5 and K6 against their plain versions at the LBS shape
     (the (M, 11) table K2 reads, transposed, at the flagship's (4, N) KNN
-    indices), K6 twice (whether the two agree bit for bit is printed),
-    timed beside the library calls;
-    ptxas's registers and the resident blocks per SM of K5 and K6's two
+    indices), K6 twice (bit-equal to its plain version, which sums in its
+    order given the card's plan, and to itself), timed beside the library
+    calls; ptxas's registers and the resident blocks per SM of K5 and K6's
     kernels (`log`: the smallgather build log); the edge cases; then a
-    (100000, 16) table, untimed."""
+    (100000, 16) table (the sorted route), untimed."""
     import torch
     from dimo_tpu_torch.ops import smallgather as sg
     table = table_t.T.contiguous()                       # (M, 11)
@@ -866,10 +902,13 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
     if route != "tables":
         fail(f"K6 takes the {route} route at the LBS shape ({m}, {d})")
     ptx = {k: ptxas_kernel(log, n) for k, n in (
-        ("K5", "gather_rows_kernel"), ("K6 block", "scatter_rows_block"),
-        ("K6 combine", "combine_tables"))}
+        ("K5", "gather_rows_kernel"), ("K6 block", "scatter_block_kernelILb0"),
+        ("K6 combine", "combine_tables"),
+        ("K6 sorted tiles", "segment_tiles_kernelILb0"),
+        ("K6 sorted runs", "segment_runs_kernelILb0"))}
     for k, v in ptx.items():
-        print(f"  {k}: ptxas {v}; {occ[k]} resident blocks per SM")
+        print(f"  {k}: ptxas {v}" + (f"; {occ[k]} resident blocks per SM"
+                                     if k in occ else ""))
     print(f"K6 table route at ({m}, {d}): {smem} bytes of shared memory a "
           f"block, {blocks} blocks of {per_block} sites, scratch "
           f"{blocks * smem} bytes")
@@ -883,24 +922,19 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
                      generator=torch.Generator().manual_seed(14)).to(dev)
     got = sg.gather_small_bwd(g6, nn_idx, m)
     again = sg.gather_small_bwd(g6, nn_idx, m)
-    ref = sg.gather_small_bwd_plain(g6, nn_idx, m)
-    mass = sg.gather_small_bwd_plain(g6.abs(), nn_idx, m)
+    ref = sg.gather_small_bwd_plain(g6, nn_idx, m, (blocks, per_block))
     torch.cuda.synchronize()
     k6_err = float((got - ref).abs().max())
-    if not torch.isfinite(got).all() or bool(((got - ref).abs()
-                                              > 1e-5 * mass + 1e-30).any()):
-        fail(f"K6 disagrees with its plain version: max |err| {k6_err} "
-             f"(tol 1e-5 of each entry's sum of |g|)")
-    # the table route adds with shared atomics: two runs may differ in
-    # their last bits (ROADMAP.md, Queue C)
     identical = torch.equal(got, again)
-    if bool(((again - ref).abs() > 1e-5 * mass + 1e-30).any()):
-        fail("K6 disagrees with its plain version on a second run")
-    print(f"K6 at the LBS shape, two runs: bit-identical {identical}, max "
-          f"|a - b| {float((got - again).abs().max()):.3g}")
+    if not (torch.equal(got, ref) and identical):
+        fail(f"K6 at the LBS shape: equal to its plain version "
+             f"{torch.equal(got, ref)} (max |err| {k6_err}), the same bits "
+             f"on a second run {identical}")
+    print("K6 at the LBS shape: bit-equal to its plain version (the same "
+          "order) and bit-identical on a second run")
     edge = rows_edge_cases(dev)
-    print("K5 (bit-exact) and K6 (1e-5 of each entry's |g| mass) also on: "
-          + "; ".join(edge))
+    print("K5 (bit-exact) and K6 (bit-equal to its plain version, and on a "
+          "second run) also on: " + "; ".join(edge))
     g6_flat = g6.reshape(-1, d)
     k5_ms = cuda_ms(lambda: sg.gather_small(table, nn_idx), 200)
     k6_ms = cuda_ms(lambda: sg.gather_small_bwd(g6, nn_idx, m), 200)
@@ -932,16 +966,17 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
     if not torch.equal(got, sg.gather_small_plain(big, bidx)):
         fail("K5 disagrees with its plain version on a (100000, 16) table")
     got = sg.gather_small_bwd(bg_, bidx, 100_000)
+    again = sg.gather_small_bwd(bg_, bidx, 100_000)
     ref = sg.gather_small_bwd_plain(bg_, bidx, 100_000)
-    mass = sg.gather_small_bwd_plain(bg_.abs(), bidx, 100_000)
     torch.cuda.synchronize()
     big_err = float((got - ref).abs().max())
-    if bool(((got - ref).abs() > 1e-5 * mass + 1e-30).any()):
-        fail(f"K6 disagrees with its plain version on a (100000, 16) table: "
-             f"max |err| {big_err}")
+    if not (torch.equal(got, ref) and torch.equal(got, again)):
+        fail(f"K6 disagrees with its plain version or itself on a (100000, "
+             f"16) table: max |err| {big_err}")
     print(f"K5/K6 on a (100000, 16) table, 200000 sites "
           f"({int(((bidx < 0) | (bidx >= 100_000)).sum())} out of range): K5 "
-          f"bit-exact, K6 max |err| {big_err:.3g}")
+          f"bit-exact, K6 (sorted route) bit-equal to its plain version and "
+          f"on a second run")
     nbytes = s_sites * 4 + m * d * 4 + s_sites * d * 4
     return {"k5": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, lib_ms=k5_lib,
                        graph_ms=k5_graph, lib_graph_ms=k5_lib_graph,
@@ -950,9 +985,76 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
             "k6": dict(err=k6_err, ms=k6_ms, plain_ms=k6_plain, lib_ms=k6_lib,
                        graph_ms=k6_graph, lib_graph_ms=k6_lib_graph,
                        bytes=nbytes, k6_route=route, bit_identical=identical,
-                       ptxas=[ptx["K6 block"], ptx["K6 combine"]],
+                       ptxas=[ptx["K6 block"], ptx["K6 combine"],
+                              ptx["K6 sorted tiles"], ptx["K6 sorted runs"]],
                        blocks_per_sm=[occ["K6 block"], occ["K6 combine"]],
                        grid=blocks)}
+
+
+def row_scatter_phase(dev, table, lists, tfin, gout, log: str) -> dict:
+    """Phase 2h: the strip path's row scatter (`gather_rows_bwd`, the
+    sorted route's kernels) at the shape the main path gives it: K3's
+    per-slot row gradients of the flagship frame (256 strips x 1,024 slots
+    x 16 floats) into the (N+1, 16) coefficient table, N = 100,000.
+    Bit-equal to its plain version, which sums in the same order, and to
+    itself on a second run; also with indices -1 and N+1 among the slots,
+    with every slot on one row, and with no slot. Timed beside `zeros +
+    index_add_`, the design it replaces. ptxas's registers."""
+    import torch
+    from dimo_tpu_torch.ops import smallgather as sg
+    from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import gather as rg
+    m = table.shape[0]
+    idx = lists.idx
+    dslot = cs.composite_strips_bwd(table, idx, lists.count, tfin, gout)
+    flat = idx.reshape(-1)
+    s_slots = flat.numel()
+    gen = torch.Generator().manual_seed(21)
+
+    def check(g, ix, name):
+        got = rg.gather_rows_bwd(g, ix, m)
+        again = rg.gather_rows_bwd(g, ix, m)
+        ref = sg.scatter_sorted_plain(g.reshape(-1, 16),
+                                      ix.reshape(-1).long(), m)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fail(f"the row scatter disagrees with its plain version or "
+                 f"itself ({name}): max |err| "
+                 f"{float((got - ref).abs().max())}")
+
+    check(dslot, idx, "the flagship frame")
+    bad = idx.clone()
+    bad[:, :3] = -1
+    bad[:, 3:5] = m
+    noise = torch.randn(dslot.shape, generator=gen).to(dev)
+    check(noise, bad, "indices -1 and N+1")
+    check(noise, torch.full_like(idx, 7), "every slot on row 7")
+    check(noise[:, :0], idx[:, :0], "no slot")
+    ptx = {k: ptxas_kernel(log, n) for k, n in (
+        ("tiles", "segment_tiles_kernelILb0"),
+        ("runs", "segment_runs_kernelILb0"))}
+    dummy = int((flat == m - 1).sum())
+    fn = lambda: rg.gather_rows_bwd(dslot, idx, m)            # noqa: E731
+    g2 = dslot.reshape(-1, 16)
+    flat_l = flat.long()
+    lib = lambda: torch.zeros((m, 16), device=dev).index_add_(  # noqa: E731
+        0, flat_l, g2)
+    out = {"ms": cuda_ms(fn, 50), "graph_ms": graph_ms(fn, 50),
+           "lib_ms": cuda_ms(lib, 50), "lib_graph_ms": graph_ms(lib, 50),
+           "plain_ms": cuda_ms(
+               lambda: sg.scatter_sorted_plain(g2, flat_l, m), 2, warmup=1),
+           "bytes": s_slots * 4 + s_slots * 16 * 4 + m * 16 * 4,
+           "err": 0.0, "ptxas": [ptx["tiles"], ptx["runs"]],
+           "slots": s_slots, "dummy_slots": dummy}
+    print(f"row scatter ({tuple(dslot.shape)} -> ({m}, 16); {dummy} of "
+          f"{s_slots} slots on the dummy row): bit-equal to its plain "
+          f"version and on a second run, also with indices -1 and N+1, every "
+          f"slot on one row, no slot; {out['ms']:.4f} ms (plain "
+          f"{out['plain_ms']:.2f}, zeros + index_add_ {out['lib_ms']:.4f}); "
+          f"in a CUDA graph {out['graph_ms']:.5f} ms (zeros + index_add_ "
+          f"{out['lib_graph_ms']:.5f}); ptxas: tiles {ptx['tiles']}; runs "
+          f"{ptx['runs']}")
+    return out
 
 
 def tile_occupancy() -> dict:
@@ -1448,6 +1550,7 @@ def tile_path_phase(dev) -> dict:
     from dimo_tpu_torch.ops import smallgather as sg
     from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
+    from dimo_tpu_torch.ops.rasterizer import gather as rg
     from dimo_tpu_torch.ops.rasterizer import projection, tiles
     from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
     from dimo_tpu_torch.models import deform
@@ -1458,10 +1561,7 @@ def tile_path_phase(dev) -> dict:
     bg = torch.ones(3, device=dev)
     times = [i / TILE_ITERS for i in range(TILE_ITERS)]
 
-    cs.launches = dict.fromkeys(cs.launches, 0)
-    ct.launches = dict.fromkeys(ct.launches, 0)
-    sg.launches = sg.bwd_launches = 0
-    sg.rows_launches = sg.rows_bwd_launches = 0
+    zero_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     images, overflow = [], 0
@@ -1537,11 +1637,11 @@ def tile_path_phase(dev) -> dict:
               "K8 ch4": ct.launches["ch4"], "K9": ct.launches["bwd"],
               "K2": sg.launches,
               "K4": sg.bwd_launches, "K5": sg.rows_launches,
-              "K6": sg.rows_bwd_launches}
+              "K6": sg.rows_bwd_launches, "row scatter": rg.launches}
     want = {"K8 ch7": TILE_ITERS, "K8 ch3": TILE_ITERS, "K8 ch4": 0,
             "K9": TILE_ITERS,
             "K2": 2 * TILE_ITERS, "K4": TILE_ITERS, "K5": TILE_ITERS,
-            "K6": TILE_ITERS}
+            "K6": TILE_ITERS, "row scatter": TILE_ITERS}
     if launch != want or any(cs.launches.values()):
         fail(f"tile path launches {launch} (strip kernels {cs.launches}), "
              f"expected {want} and no strip kernel")
@@ -1631,8 +1731,9 @@ def step_spread(step_fn, state, batch, lcfg) -> dict:
     """The loss and every leaf's gradient of one s2 step, computed twice
     from the same state, inputs and ARAP times (no update between): the
     largest |difference| of the loss, and of each leaf with its share of
-    the leaf's max |grad|. Atomic adds (K4, gather_rows' index_add_) may
-    make them differ."""
+    the leaf's max |grad|, and whether both runs gave the same bits. They
+    must: K4, K6 and the row scatter add in fixed orders, and cuDNN runs
+    the LPIPS convolutions by deterministic algorithms."""
     import torch
     from dimo_tpu_torch.train import optim
     times = torch.rand((lcfg.arap_t_samples,),
@@ -1659,8 +1760,22 @@ def step_spread(step_fn, state, batch, lcfg) -> dict:
         diff = float((ga[k] - gb[k]).abs().max()) if ga[k].numel() else 0.0
         top = float(ga[k].abs().max()) if ga[k].numel() else 0.0
         grads[k] = (diff, diff / top if top > 0 else 0.0)
+    same = torch.equal(la, lb) and all(torch.equal(ga[k], gb[k]) for k in ga)
     return {"loss": float((la - lb).abs()), "loss_value": float(la),
-            "grads": grads}
+            "grads": grads, "identical": same}
+
+
+def print_spread(phase: str, sp: dict) -> None:
+    """Print `step_spread`'s result; fail unless both runs were the same
+    bits."""
+    print(f"train step run to run, phase {phase} (loss and gradients of the "
+          "same s2 step twice from one state, max |a - b| and its share of "
+          f"the leaf's max |grad|): bit-identical {sp['identical']}; loss "
+          f"{sp['loss']:.3g}; " + "; ".join(
+              f"{k} {v[0]:.3g} ({v[1]:.3g})" for k, v in sp["grads"].items()))
+    if not sp["identical"]:
+        fail(f"phase {phase}: one s2 step computed twice from one state "
+             "gave different bits")
 
 
 def lpips_precision(img, gt) -> dict:
@@ -1669,8 +1784,9 @@ def lpips_precision(img, gt) -> dict:
     in float32 on the card. Each is computed twice, the forward under
     cuDNN's global TF32 flag off and the backward under it on, then the
     other way round: each pass sets its own precision, so the two must
-    agree far closer than TF32 and float32 do (they may differ by the
-    order of an atomic add in cuDNN's backward). Also the forward and
+    agree far closer than TF32 and float32 do (cuDNN's deterministic
+    algorithms, which the scoped context asks for, made them the same
+    bits on an H100). Also the forward and
     forward + backward times (CUDA events, mean of 3)."""
     import torch
     from dimo_tpu_torch.models.lpips import LPIPS, seeded_lpips_params
@@ -1917,10 +2033,211 @@ def trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
             "resumed_at": done + 1}
 
 
+def twin_trainer_phase(device, synth_kw: dict, opt_kw: dict, s1_iters: int,
+                       s2_iters: int, lpips_fn=None) -> dict:
+    """Phase 7b: one cut `Trainer.train_dynamic` (no snapshots) run twice,
+    each run by a fresh Trainer from the same seed and videos, the second
+    after the first is freed. Returns both runs' step losses, the first
+    (stage, step) whose losses differ, the active Gaussians of each run,
+    and `diagnostics.fingerprint_diff` of the two runs' parameters, Adam
+    moments and checkpoint files ({} when they are the same bits)."""
+    import torch
+    from dimo_tpu_torch.io.synthetic import make_synthetic_videos
+    from dimo_tpu_torch.models import gaussians as G
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.train.loop import Trainer
+    from dimo_tpu_torch.utils import diagnostics
+
+    images, masks, meta = make_synthetic_videos(device=device, **synth_kw)
+    root = tempfile.mkdtemp(prefix="dimo_twin_")
+    runs = []
+    t0 = time.time()
+    try:
+        for r in range(2):
+            opt = tiny_synthetic_opt(save_path=os.path.join(root, f"run{r}"),
+                                     **opt_kw)
+            log = []
+            tr = Trainer(opt, images, masks, meta, device=device,
+                         log_fn=lambda st, step, m, trainer: log.append(
+                             (st, step, float(m["loss"]))))
+            tr.train_dynamic(s1_iters, s2_iters, lpips_fn=lpips_fn)
+            runs.append((log, diagnostics.run_fingerprint(tr),
+                         int(G.num_active(tr.state.aux))))
+            del tr
+            if torch.device(device).type == "cuda":
+                free_cached()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (la, fa, na), (lb, fb, nb) = runs
+    first = next(((a[0], a[1]) for a, b in zip(la, lb) if a != b), None)
+    if len(la) != len(lb) and first is None:
+        first = ("steps", min(len(la), len(lb)))
+    return {"steps": len(la), "losses": (la, lb), "first_diff": first,
+            "n_active": (na, nb), "diff": diagnostics.fingerprint_diff(fa, fb),
+            "files": len(fa["files"]), "stage": fa["counters"][0],
+            "wall_s": time.time() - t0}
+
+
+def determinism_probe(dev) -> None:
+    """`--phase determinism`, a development run that fails nothing: the
+    spread of one flagship s2 step computed twice (phase 6's step, then
+    6b's with LPIPS on), the LPIPS input gradient and SSIM's gradient each
+    computed twice, and phase 7b's twin trainers, all printed. It calls
+    only entry points that older trees of the port have too, so a
+    checkout of an older commit with this script copied in shows how that
+    tree behaves."""
+    import torch
+    from dimo_tpu_torch.models.lpips import get_lpips, random_init_lpips
+    from dimo_tpu_torch.ops import image_losses as L
+    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.train.step import (LossConfig, init_state,
+                                           make_train_step)
+    cfg, params, aux, _ = flagship_scene(device=dev)
+    n_m, n_v, n_f = TRAIN_SHAPE
+    lcfg = LossConfig()
+    state = init_state(params, aux, step=TRAIN_START - 1)
+    batch = train_batch(params, TRAIN_SHAPE, WIDTH, dev, seed=0)
+    lpips_fn = random_init_lpips(0, dev)
+    for name, lp in (("6 (LPIPS off)", None), ("6b (LPIPS on)", lpips_fn)):
+        fn = make_train_step(cfg, lcfg, "s2", WIDTH, HEIGHT, n_m, n_v, n_f,
+                             capacity=CAPACITY, lpips_fn=lp,
+                             use_guidance=True)
+        sp = step_spread(fn, state, batch, lcfg)
+        print(f"step_spread phase {name}: loss {sp['loss']:.3g}; " + "; ".join(
+            f"{k} {v[0]:.3g} ({v[1]:.3g})" for k, v in sp["grads"].items()))
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand((4, 3, WIDTH, HEIGHT), generator=gen).to(dev)
+    gt = torch.rand((4, 3, WIDTH, HEIGHT), generator=gen).to(dev)
+    for name, f in (("LPIPS", lambda x: torch.sum(lpips_fn(x, gt))),
+                    ("SSIM", lambda x: L.ssim(x.permute(0, 2, 3, 1),
+                                              gt.permute(0, 2, 3, 1)))):
+        gs = []
+        for _ in range(2):
+            x = img.clone().requires_grad_(True)
+            f(x).backward()
+            gs.append(x.grad)
+        print(f"{name} input gradient twice: bit-identical "
+              f"{torch.equal(*gs)}, max |a - b| "
+              f"{float((gs[0] - gs[1]).abs().max()):.3g}")
+    del state, batch, params, aux
+    free_cached()
+    tw = twin_trainer_phase(
+        dev, dict(num_motions=4, num_views=3, num_frames=5, ref_size=512,
+                  n_gauss=60, seed=0), TRAINER_OPT, *TWIN_ITERS,
+        lpips_fn=get_lpips("weights/lpips_vgg.npz", fallback="random",
+                           device=dev))
+    print_twin(tw)
+
+
+def scatter_timing(dev) -> dict:
+    """`--phase timing`, a development run: the graph and loop ms of K4
+    and K6 at the LBS shape (the flagship's KNN indices), of the row
+    scatter at the flagship frame's strip lists (K3's slot gradients of a
+    seeded cotangent), LPIPS's forward and backward of 16 renders at 512^2
+    in calls of 4 and of 16 (CUDA events), and the s2 step's ms (phase
+    6's shape, LPIPS off and on; one warm-up, then TIMING_STEPS each,
+    host clock). It calls
+    only entry points that older trees of the port have too, so a checkout
+    of the commit before the fixed-order scatters, with this script copied
+    in, gives the atomic designs' times to put beside these (runs in
+    turns, each its own process)."""
+    import torch
+    from dimo_tpu_torch.models.lpips import random_init_lpips
+    from dimo_tpu_torch.models.renderer import find_knn
+    from dimo_tpu_torch.ops import smallgather as sg
+    from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import projection, strips
+    from dimo_tpu_torch.ops.rasterizer import gather as rg
+    from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
+    from dimo_tpu_torch.models import deform, gaussians as G
+    from dimo_tpu_torch.scenes import flagship_scene
+    from dimo_tpu_torch.train.step import (LossConfig, init_state,
+                                           make_train_step)
+    cfg, params, aux, cam = flagship_scene(device=dev)
+    knn = find_knn(params, aux)
+    nn_idx = knn[1].contiguous()
+    m = params.c_xyz.shape[0]
+    gen = torch.Generator().manual_seed(12)
+    g4 = torch.randn((11,) + tuple(nn_idx.shape), generator=gen).to(dev)
+    g6 = torch.randn(tuple(nn_idx.shape) + (11,), generator=gen).to(dev)
+    with torch.no_grad():
+        lat = G.sample_latent(params, 1)
+        d_xyz, d_rot = params.timenet(params.c_xyz, 0.0, lat)
+        means3d, rots = deform.lbs_blend(
+            params.xyz, params.rotation, params.c_xyz, d_xyz, d_rot,
+            G.get_c_radius(params), knn[1], knn[0])
+        wv, fp, cp = camera_tensors(cam, dev)
+        pr = projection.project(
+            means3d, G.get_scaling(params, "s2"), rots, G.get_opacity(params),
+            G.get_features(params), wv, fp, cp, float(cam.tan_fovx),
+            float(cam.tan_fovy), WIDTH, HEIGHT, valid=aux.active)
+        lists = strips.build_strip_lists(pr.mean2d, pr.cull_radius, pr.depth,
+                                         pr.in_frustum, HEIGHT, WIDTH,
+                                         CAPACITY)
+        table = strips.coef_table(pr.mean2d, pr.conic, G.get_opacity(params),
+                                  pr.color, pr.depth, pr.normal, HEIGHT, WIDTH)
+        out = cs.composite_strips(table, lists.idx, lists.count, HEIGHT, WIDTH)
+        gout = torch.randn(out.shape, generator=gen).to(dev)
+        dslot = cs.composite_strips_bwd(table, lists.idx, lists.count,
+                                        out[cs.OUT_CH], gout)
+    rows = table.shape[0]
+    fns = {"k4": lambda: sg.gather_small_cols_bwd(g4, nn_idx, m),
+           "k6": lambda: sg.gather_small_bwd(g6, nn_idx, m),
+           "row_scatter": lambda: rg.gather_rows_bwd(dslot, lists.idx, rows)}
+    res = {}
+    for name, fn in fns.items():
+        res[f"{name}_graph_ms"] = graph_ms(fn, 200 if name != "row_scatter"
+                                           else 50)
+        res[f"{name}_ms"] = cuda_ms(fn, 200 if name != "row_scatter" else 50)
+    # LPIPS's forward and backward on the step's 16 renders at 512^2, in
+    # calls of 4 (a motion's) and of 16
+    net = random_init_lpips(0, dev)
+    img = torch.rand((16, 3, WIDTH, HEIGHT), generator=gen).to(dev)
+    gt = torch.rand((16, 3, WIDTH, HEIGHT), generator=gen).to(dev)
+    for per in (4, 16):
+        def lp():
+            x = img.clone().requires_grad_(True)
+            sum(net(x[i:i + per], gt[i:i + per]).sum()
+                for i in range(0, 16, per)).backward()
+        res[f"lpips_{16 // per}x{per}_ms"] = cuda_ms(lp, 5, warmup=1)
+    del img, gt
+    n_m, n_v, n_f = TRAIN_SHAPE
+    lcfg = LossConfig()
+    state = init_state(params, aux, step=TRAIN_START - 1)
+    batch = train_batch(params, TRAIN_SHAPE, WIDTH, dev, seed=0)
+    for key, lp in (("step_ms", None), ("step_lpips_ms",
+                                         random_init_lpips(0, dev))):
+        fn = make_train_step(cfg, lcfg, "s2", WIDTH, HEIGHT, n_m, n_v, n_f,
+                             capacity=CAPACITY, lpips_fn=lp,
+                             use_guidance=True)
+        state, _ = fn(state, batch)
+        times = []
+        for _ in range(TIMING_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, _ = fn(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        res[key] = times
+    return res
+
+
+def print_twin(tw: dict) -> None:
+    print(f"twin trainers ({TWIN_ITERS[0]} s1 + {TWIN_ITERS[1]} s2 "
+          f"iterations, {tw['steps']} steps, {tw['files']} checkpoint files, "
+          f"{tw['wall_s']:.1f} s): first step whose losses differ "
+          f"{tw['first_diff']}; active Gaussians {tw['n_active']}; "
+          f"differences {tw['diff'] or 'none: bit-identical'}")
+    print("twin trainer losses: " + "; ".join(
+        f"{a[0]} {a[1]}: {a[2]!r} / {b[2]!r}"
+        for a, b in zip(*tw["losses"])))
+
+
 def launch_counts() -> dict:
     """Every kernel's launch counter, by the names of the kernels line."""
     from dimo_tpu_torch.ops import smallgather as sg
     from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import gather as rg
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
     from dimo_tpu_torch.ops.rasterizer import windowdma as wd
     return {"K1 ch7": cs.launches["ch7"], "K1 ch3": cs.launches["ch3"],
@@ -1929,18 +2246,19 @@ def launch_counts() -> dict:
             "K5": sg.rows_launches, "K6": sg.rows_bwd_launches,
             "K7": wd.launches, "K8 ch7": ct.launches["ch7"],
             "K8 ch4": ct.launches["ch4"], "K8 ch3": ct.launches["ch3"],
-            "K9": ct.launches["bwd"]}
+            "K9": ct.launches["bwd"], "row scatter": rg.launches}
 
 
 def zero_launch_counts() -> None:
     from dimo_tpu_torch.ops import smallgather as sg
     from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+    from dimo_tpu_torch.ops.rasterizer import gather as rg
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
     from dimo_tpu_torch.ops.rasterizer import windowdma as wd
     cs.launches = dict.fromkeys(cs.launches, 0)
     ct.launches = dict.fromkeys(ct.launches, 0)
     sg.launches = sg.bwd_launches = sg.rows_launches = sg.rows_bwd_launches = 0
-    wd.launches = 0
+    wd.launches = rg.launches = 0
 
 
 def frames_close(got, ref, what: str) -> int:
@@ -2635,12 +2953,13 @@ def test_modes_phase(dev, root: str) -> dict:
          want(K1_ch7=2 * n_f, K2=n_f)),
         ("test_motion", ["test_motion=True", f"test_motion_data={motion_dir}"],
          want(K1_ch7=B * FT_ITERS + 3 * n_f, K2=B * FT_ITERS + 2 * n_f,
-              K3=B * FT_ITERS, K4=B * FT_ITERS)),
+              K3=B * FT_ITERS, K4=B * FT_ITERS, row_scatter=B * FT_ITERS)),
         ("test_unaligned_motion", ["test_unaligned_motion=True",
                                    f"test_unaligned_motion_data={motion_dir}"],
          want(K1_ch7=B * (FT_ITERS_A + FT_ITERS_B) + n_f,
               K2=B * FT_ITERS_B + n_f, K3=B * (FT_ITERS_A + FT_ITERS_B),
-              K4=B * FT_ITERS_B))]
+              K4=B * FT_ITERS_B,
+              row_scatter=B * (FT_ITERS_A + FT_ITERS_B)))]
     walls, launches, results = {}, {}, {}
     try:
         for mod, name, fn in patches:
@@ -2749,7 +3068,8 @@ def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
     launches["train"] = launch_counts()
     n1, n2 = TRAIN_CLI_ITERS
     expect = want(K1_ch7=per_step * (n1 + n2), K3=per_step * (n1 + n2),
-                  K2=per_step * n2, K4=per_step * n2)
+                  K2=per_step * n2, K4=per_step * n2,
+                  row_scatter=per_step * (n1 + n2))
     if launches["train"] != expect:
         fail(f"phase 9 train CLI: launches {launches['train']}, expected {expect}")
     bad = [k for k, v in optim.named_leaves(tr.state.params).items()
@@ -2885,6 +3205,7 @@ def main() -> None:
         from dimo_tpu_torch.models.renderer import find_knn, render
         from dimo_tpu_torch.ops import smallgather as sg
         from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
+        from dimo_tpu_torch.ops.rasterizer import gather as rg
         from dimo_tpu_torch.ops.rasterizer import projection, strips, tiles
         from dimo_tpu_torch.ops.rasterizer import windowdma as wd
         from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
@@ -2912,6 +3233,14 @@ def main() -> None:
     for name, log in logs.items():
         for ln in ptxas_summary(log):
             print(f"  ptxas[{name}]: {ln}")
+    if sys.argv[1:] == ["--phase", "timing"]:
+        print("timing " + json.dumps(scatter_timing(dev)))
+        sys.exit(0)
+    if sys.argv[1:] == ["--phase", "determinism"]:
+        determinism_probe(dev)
+        print(f"chip_smoke --phase determinism: done in "
+              f"{time.time() - t_start:.1f} s")
+        sys.exit(0)
     if sys.argv[1:] == ["--phase", "10"]:
         # a development run of phase 10 alone: no result line
         phase10(dev, card)
@@ -3076,9 +3405,13 @@ def main() -> None:
     if route4 != "tables":
         fail(f"K4 takes the {route4} route at the LBS shape (11, {m})")
     ptx4 = {k: ptxas_kernel(logs["smallgather"], n) for k, n in (
-        ("K4 block", "scatter_cols_block"), ("K4 combine", "combine_tables"))}
+        ("K4 block", "scatter_block_kernelILb1"),
+        ("K4 combine", "combine_tables"),
+        ("K4 sorted tiles", "segment_tiles_kernelILb1"),
+        ("K4 sorted runs", "segment_runs_kernelILb1"))}
     for k, v in ptx4.items():
-        print(f"  {k}: ptxas {v}; {occ4[k]} resident blocks per SM")
+        print(f"  {k}: ptxas {v}" + (f"; {occ4[k]} resident blocks per SM"
+                                     if k in occ4 else ""))
     print(f"K4 {route4} route at (11, {m}): {smem4} bytes of shared memory a "
           f"block, {grid4} blocks of {per4} sites, scratch {grid4 * smem4} "
           f"bytes")
@@ -3086,22 +3419,20 @@ def main() -> None:
                      generator=torch.Generator().manual_seed(12)).to(dev)
     got = sg.gather_small_cols_bwd(g4, nn_idx, m)
     again = sg.gather_small_cols_bwd(g4, nn_idx, m)
-    ref = sg.gather_small_cols_bwd_plain(g4, nn_idx, m)
-    mass = sg.gather_small_cols_bwd_plain(g4.abs(), nn_idx, m)
+    # the plain version sums in the kernel's order, given the card's plan
+    ref = sg.gather_small_cols_bwd_plain(g4, nn_idx, m, (grid4, per4))
     torch.cuda.synchronize()
     k4_err = float((got - ref).abs().max())
-    for name, run in (("", got), (" on a second run", again)):
-        if not torch.isfinite(run).all() or bool(((run - ref).abs()
-                                                  > 1e-5 * mass + 1e-30).any()):
-            fail(f"K4 disagrees with its plain version{name}: max |err| "
-                 f"{float((run - ref).abs().max())} (tol 1e-5 of each "
-                 f"entry's sum of |g|)")
-    # shared atomics: two runs may differ in their last bits (Queue C)
     k4_identical = torch.equal(got, again)
-    print(f"K4 at the LBS shape, two runs: bit-identical {k4_identical}, max "
-          f"|a - b| {float((got - again).abs().max()):.3g}")
+    if not (torch.equal(got, ref) and k4_identical):
+        fail(f"K4 at the LBS shape: equal to its plain version "
+             f"{torch.equal(got, ref)} (max |err| {k4_err}), the same bits "
+             f"on a second run {k4_identical}")
+    print("K4 at the LBS shape: bit-equal to its plain version (the same "
+          "order) and bit-identical on a second run")
     k4_cases = k4_edge_cases(dev, table_t, nn_idx)
-    print("K4 (1e-5 of each entry's |g| mass) also on: " + "; ".join(k4_cases))
+    print("K4 (bit-equal to its plain version, and on a second run) also "
+          "on: " + "; ".join(k4_cases))
     g4_flat = g4.reshape(11, -1)
     k4_ms = cuda_ms(lambda: sg.gather_small_cols_bwd(g4, nn_idx, m), 200)
     k4_plain = cuda_ms(lambda: sg.gather_small_cols_bwd_plain(g4, nn_idx, m),
@@ -3194,6 +3525,10 @@ def main() -> None:
 
     # --- 2f. K5/K6 against their plain versions at the LBS shape --------
     rows_res = rows_gather_phase(dev, table_t, nn_idx, logs["smallgather"])
+
+    # --- 2h. the row scatter at the flagship frame's strip lists --------
+    scat = row_scatter_phase(dev, table, lists, tfin, res["gout"],
+                             logs["smallgather"])
 
     # --- 2g. K8/K9 against their plain versions at the flagship tiles ---
     tile_res = tile_kernels_phase(dev, p, G.get_opacity(params).detach(),
@@ -3376,9 +3711,7 @@ def main() -> None:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cs.launches = dict.fromkeys(cs.launches, 0)
-    sg.launches = 0
-    sg.bwd_launches = 0
+    zero_launch_counts()
     metrics = []
     t_first = time.time()
     for i in range(1 + TRAIN_STEPS):
@@ -3394,7 +3727,8 @@ def main() -> None:
     step_ms = (time.time() - t0) / TRAIN_STEPS * 1e3
     peak_no_lp = torch.cuda.max_memory_allocated() / 2**30
     train_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
-                    "K3": cs.launches["bwd"], "K4": sg.bwd_launches}
+                    "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
+                    "row scatter": rg.launches}
     for i, m in enumerate(metrics):
         if not bool(torch.isfinite(m["loss"])) or int(m["nonfinite_grad"]):
             fail(f"train step {i}: loss {float(m['loss'])}, nonfinite_grad "
@@ -3427,12 +3761,8 @@ def main() -> None:
         f"{k}={float(last[k]):.5g}" for k in
         ("loss", "mse", "psnr", "ssim_loss", "mask_loss", "smooth",
          "bilateral", "arap", "ga", "grad_norm", "overflow")))
-    spread = step_spread(step_fn, state, batch, lcfg)
-    print("train step run to run (loss and gradients of the same s2 step "
-          "twice from one state, max |a - b| and its share of the leaf's "
-          f"max |grad|): loss {spread['loss']:.3g}; " + "; ".join(
-              f"{k} {v[0]:.3g} ({v[1]:.3g})"
-              for k, v in spread["grads"].items()))
+    spread = {"6": step_spread(step_fn, state, batch, lcfg)}
+    print_spread("6", spread["6"])
 
     # --- 6b. the same training path with LPIPS on (the seeded fallback) --
     lpips_fn = random_init_lpips(0, dev)
@@ -3444,9 +3774,7 @@ def main() -> None:
     marks.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cs.launches = dict.fromkeys(cs.launches, 0)
-    sg.launches = 0
-    sg.bwd_launches = 0
+    zero_launch_counts()
     metrics_lp = []
     for i in range(1 + TRAIN_STEPS):
         if i == 1:
@@ -3460,7 +3788,8 @@ def main() -> None:
     step_lp_ms = (time.time() - t0) / TRAIN_STEPS * 1e3
     peak_lp = torch.cuda.max_memory_allocated() / 2**30
     lp_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
-                 "K3": cs.launches["bwd"], "K4": sg.bwd_launches}
+                 "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
+                 "row scatter": rg.launches}
     for i, m in enumerate(metrics_lp):
         if (not bool(torch.isfinite(m["loss"])) or int(m["nonfinite_grad"])
                 or not float(m["lpips"]) > 0):
@@ -3496,6 +3825,8 @@ def main() -> None:
     print("LPIPS train metrics (last step): " + " ".join(
         f"{k}={float(last[k]):.5g}" for k in
         ("loss", "lpips", "mse", "ssim_loss", "arap", "grad_norm")))
+    spread["6b"] = step_spread(step_lp, state, batch, lcfg)
+    print_spread("6b", spread["6b"])
     # TF32 against float32 on one motion's renders and their GT
     with torch.no_grad():
         knn_b = find_knn(params, aux)
@@ -3583,8 +3914,7 @@ def main() -> None:
           "fallback")
     trainer_lpips = get_lpips("weights/lpips_vgg.npz", fallback="random",
                               device=dev)
-    cs.launches = dict.fromkeys(cs.launches, 0)
-    sg.launches = sg.bwd_launches = wd.launches = 0
+    zero_launch_counts()
     tp = trainer_phase(
         dev, dict(num_motions=4, num_views=3, num_frames=5, ref_size=512,
                   n_gauss=60, seed=0), TRAINER_OPT, S1_ITERS, S2_ITERS,
@@ -3592,11 +3922,11 @@ def main() -> None:
     tiles.WINDMA = 0
     tr_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
                  "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
-                 "K7": wd.launches}
+                 "K7": wd.launches, "row scatter": rg.launches}
     renders = tp["steps"] * tp["renders_per_step"]
     renders_s2 = tp["s2_steps"] * tp["renders_per_step"]
     want = {"K1 ch7": renders, "K3": renders, "K7": renders,
-            "K2": renders_s2, "K4": renders_s2}
+            "K2": renders_s2, "K4": renders_s2, "row scatter": renders}
     if tr_launch != want or cs.launches["ch3"]:
         fail(f"trainer launches {tr_launch} (ch3 {cs.launches['ch3']}), "
              f"expected {want}")
@@ -3618,6 +3948,30 @@ def main() -> None:
           f"s2={tp['stage_s']['s2']:.2f}; synthetic videos "
           f"{tp['synth_s']:.2f} s; phase wall {tp['wall_s']:.1f} s; launches "
           f"{tr_launch}")
+
+    # --- 7b. twin trainers: one cut run, twice, the same bits -------------
+    torch.cuda.empty_cache()
+    zero_launch_counts()
+    tw = twin_trainer_phase(
+        dev, dict(num_motions=4, num_views=3, num_frames=5, ref_size=512,
+                  n_gauss=60, seed=0), TRAINER_OPT, *TWIN_ITERS,
+        lpips_fn=trainer_lpips)
+    print_twin(tw)
+    tw_launch = launch_counts()
+    n1, n2 = (sum(1 for e in tw["losses"][0] if e[0] == st)
+              for st in ("s1", "s2"))
+    if (n1, n2) != TWIN_ITERS or tw["stage"] != "s2":
+        fail(f"phase 7b: the runs took {n1} s1 and {n2} s2 steps and ended "
+             f"in {tw['stage']}, expected {TWIN_ITERS} and s2")
+    r7b = 2 * (n1 + n2) * tp["renders_per_step"]
+    r7b_s2 = 2 * n2 * tp["renders_per_step"]
+    want = {"K1 ch7": r7b, "K3": r7b, "row scatter": r7b, "K2": r7b_s2,
+            "K4": r7b_s2}
+    if any(tw_launch[k] != v for k, v in want.items()):
+        fail(f"phase 7b launches {tw_launch}, expected {want}")
+    if tw["first_diff"] is not None or tw["diff"] or \
+            tw["n_active"][0] != tw["n_active"][1]:
+        fail("phase 7b: two trainers with one seed gave different bits")
 
     # --- 8. the tile-compositor path at full width -----------------------
     torch.cuda.empty_cache()
@@ -3767,8 +4121,22 @@ def main() -> None:
              "library_ms": k4_lib, "graph_ms": k4_graph,
              "library_graph_ms": k4_lib_graph, "k4_route": route4,
              "grid": grid4, "bit_identical": k4_identical,
-             "ptxas": [ptx4["K4 block"], ptx4["K4 combine"]],
+             "ptxas": [ptx4["K4 block"], ptx4["K4 combine"],
+                       ptx4["K4 sorted tiles"], ptx4["K4 sorted runs"]],
              "blocks_per_sm": [occ4["K4 block"], occ4["K4 combine"]]},
+            {"name": "gather_rows_bwd", "route": "cuda",
+             "source": "dimo_tpu_torch/csrc/smallgather.cu",
+             "replaces": "none (port-only: dimo_tpu/ops/rasterizer/"
+                         "gather.py:34 is XLA's sort + cumsum, no TPU kernel)",
+             "launches": lp_launch["row scatter"],
+             "launches_no_lpips": train_launch["row scatter"],
+             "launches_trainer": tr_launch["row scatter"],
+             "max_abs_err": scat["err"], "ms": scat["ms"],
+             "plain_ms": scat["plain_ms"], **bound(0.0, scat["bytes"]),
+             "library_ms": scat["lib_ms"], "graph_ms": scat["graph_ms"],
+             "library_graph_ms": scat["lib_graph_ms"],
+             "bit_identical": True, "ptxas": scat["ptxas"],
+             "slots": scat["slots"], "dummy_slots": scat["dummy_slots"]},
             {"name": "gather_windows", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/windowdma.cu",
              "replaces": "dimo_tpu/ops/rasterizer/windowdma.py:35",
@@ -3810,9 +4178,11 @@ def main() -> None:
                    if k in r}}
 
     for row in rows:
-        if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd"):
+        if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd",
+                           "gather_rows_bwd"):
             row["launches_tile_path"] = tl_launch[
-                "K2" if row["name"].endswith("fwd") else "K4"]
+                {"gather_small_cols_fwd": "K2", "gather_small_cols_bwd": "K4",
+                 "gather_rows_bwd": "row scatter"}[row["name"]]]
     tile_bwd = tile_row("K9", "composite_tiles_bwd", 280)
     tile_bwd.update(max_rel_lane_err=tile_res["bwd"]["rel"])
     rows += [rows_row("K5", "gather_small_rows_fwd", 68),
@@ -3823,6 +4193,7 @@ def main() -> None:
                   "composite_strips_fwd_ch3": "K1 ch3",
                   "gather_small_cols_fwd": "K2", "composite_strips_bwd": "K3",
                   "gather_small_cols_bwd": "K4", "gather_windows": "K7",
+                  "gather_rows_bwd": "row scatter",
                   "gather_small_rows_fwd": "K5", "gather_small_rows_bwd": "K6",
                   "composite_tiles_fwd_ch7": "K8 ch7",
                   "composite_tiles_fwd_ch4": "K8 ch4",

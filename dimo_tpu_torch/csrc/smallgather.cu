@@ -223,135 +223,199 @@ gather_rows_kernel(const float* __restrict__ table,
 }
 
 
-// K6: K5's transpose, dtable[idx[s], :] += g[s, :] for an (S, D) cotangent
-// into the (M, D) table.
+// K6 and K4: the transposes of K5 and K2, the scatter-add of a cotangent
+// into the table: K6 dtable[idx[s], :] += g[s, :] for an (S, D) cotangent
+// into an (M, D) table; K4 dtable[:, idx[s]] += g[:, s] for a (D, S)
+// cotangent into a (D, M) table.
 //
-// Replaces dimo_tpu/ops/smallgather.py:_bwd_kernel (called through
-// _bwd_call by the custom VJP _gs_bwd), one-hot^T @ (hi + lo of g) summed
-// over grid steps on the TPU.
+// K6 replaces dimo_tpu/ops/smallgather.py:_bwd_kernel (called through
+// _bwd_call by the custom VJP _gs_bwd), K4 _bwd_kernel_cols (through
+// _bwd_call_cols by _gc_bwd): one-hot^T @ (hi + lo of g), summed over grid
+// steps that the TPU runs in order on one core, so its result is the same
+// bits on every run. These kernels keep that: no float atomic anywhere, and
+// every entry of the table is summed in a FIXED ORDER that depends only on
+// the inputs and the grid (below), so a run on the card gives the same bits
+// every time. Both layouts share every kernel here, built once for each
+// (kCols).
 //
-// What bounds it on the H100: bytes: 1.6 MB of indices and 17.6 MB of
-// cotangent in, a 22.5 KB table out at the LBS shape, 5.74 us at
-// 3.35 TB/s. One global float atomic an element, ~780 onto each of the
-// 5,632 entries, is bound by the L2's atomic units instead.
+// What bounds them on the H100: bytes: 1.6 MB of indices and 17.6 MB of
+// cotangent in, a 22.5 KB table out at the LBS shape (M=512, D=11,
+// S=400k), 5.74 us at 3.35 TB/s.
 //
 // Two routes, chosen by the table's size alone (ops/smallgather.py,
-// rows_bwd_plan, the one place of the rule): the TABLE route whenever the
-// table, padded to float4s, fits a block's dynamic shared memory
-// (kMaxSmem, 223 KB), the ATOMIC route otherwise. Neither is
-// deterministic: both add with float atomics, in an order that varies
-// from run to run.
+// rows_bwd_plan, the one place of the rule, which cols_bwd_plan calls): the
+// TABLE route whenever the table, padded to float4s, fits a block's
+// dynamic shared memory (kMaxSmem, 223 KB), the SORTED route otherwise.
 //
 // Table route: one wave of 1,024-thread blocks (the occupancy API's
-// resident blocks per SM at the table's shared memory, times the SMs: 261
-// at the LBS shape), each over one contiguous range of sites. A block
-// zeroes one copy of the table in shared memory; each warp takes 32
-// sites at a time, lane l the cotangent floats l, l + 32, ... of the
-// batch (coalesced), with the (row, col) of each stepped, no division, and
-// issues four loads before their four shared atomicAdds. The block then
-// writes its table as one partial of a blocks x M x D scratch (5.9 MB at
-// the LBS shape, in L2), and combine_tables_kernel adds the partials in a
-// fixed order (warp w of a 32-warp block sums blocks w, w + 32, ...; warp
-// 0 adds the 32 sums in warp order) and writes the output: no global
-// atomic, no zeroing of the output.
+// resident blocks per SM at the table's shared memory, times the SMs,
+// capped by the 32-site batches: 132 blocks of 3,040 sites at the LBS
+// shape), each over one contiguous range of sites. A block zeroes one copy
+// of the table in shared memory and takes its range in chunks of kChunk
+// sites, in order. For a chunk each thread makes one 32-bit key, (index
+// << 10) | the site's place in the chunk, or kNoKey for an index outside
+// [0, M); a bitonic network sorts the 1,024 keys (register shuffles for
+// the steps within a warp, shared memory for the rest); the first threads
+// of each run of equal indices sum its cotangent, kColGroup columns a
+// thread, site by site in site order, and add each sum to its table entry:
+// each entry has one writer a chunk, so no atomic. The block writes its
+// table as one partial of a blocks x M x D scratch (3.0 MB at the LBS
+// shape, in L2), and combine_tables_kernel adds the partials in a fixed
+// order and writes the output: no zeroing of the output.
 //
-// Atomic route, for larger tables (a (100000, 16) table): threads walk
-// the flattened (S*D) cotangent and add each element into the output
-// (zeroed by the caller) with one global atomic; at such M the atomics
-// rarely meet.
+// The order of the table route, per entry: each chunk's run summed site by
+// site from 0; a block's table the chunks' sums added in chunk order from
+// 0; the output the partials of blocks w, w + 32, w + 64, ... added in
+// order from 0 for w = 0..31, then those 32 sums added in order of w. It
+// depends on the grid (blocks, sites a block), which the wrapper's plan
+// fixes for a card and a shape; the plain version takes the same plan and
+// sums in the same order, so the two agree bit for bit.
 //
-// Measured in a CUDA graph on NVIDIA H100 80GB HBM3, 700.00 W
-// (chip_smoke.py, PERF.md, Findings), in turns, at the LBS shape: the
-// table route 15.48-15.51 us against 33.93-34.29 for the atomic route
-// alone (its design before), and zeros + index_add_ 32.2. Designs that
-// lost, in the same run:
-//  - private tables per warp (8 of 22.5 KB in 1 block an SM), added in
-//    a fixed order, bit-identical on every run: 19.47-19.50 us with
-//    __match_any_sync groups and one row update a round; 17.64-17.65 with
-//    groups from ballots on the index bits, 64-site windows and the
-//    group's first site adding its peers before one update; 33.7 with
-//    __match_any_sync and the first lane summing its peers column by
-//    column. Timing parts of the first: staging the cotangent alone
-//    4.88 us, with the tables zeroed and added up 6.2, with the row
-//    updates but no grouping 10.8-11.0, whole 16.9-17.1: eight warps an
-//    SM leave the per-warp chain of shared-memory latencies exposed;
-//  - this design with scalar loads, one at a time, and an 8-warp second
-//    pass: 17.21-17.31 us; with 8 loads in flight: 16.0-16.4; with one
-//    block an SM (131 partials): 15.35-15.38, not taken (the grid is
-//    sized by the occupancy API).
+// Sorted route, for larger tables (a (100000, 16) table, and the strip
+// path's row scatter, ops/rasterizer/gather.py): the wrapper sorts the
+// indices with a stable sort (torch.sort, a helper: keys and the sites in
+// order), and two passes here sum each run of equal keys in that order.
+// segment_tiles_kernel: a thread a (tile of kSegTile sorted positions,
+// column) walks its tile, sums each piece of a run site by site from 0,
+// writes a run that lies inside the tile to the output (zeroed by the
+// caller) and keeps the first and last pieces of a run that crosses the
+// tile's edges; segment_runs_kernel: the thread of the tile where such a
+// run starts adds its pieces in tile order and writes it. The order of the
+// sorted route, per entry: the pieces of the run (its sites in site order,
+// cut at every kSegTile-th sorted position) each summed site by site from
+// 0, then added in order from 0. It depends on the inputs alone.
+//
+// What the fixed order costs: the table route sorts each chunk (15 of
+// the network's 55 steps behind barriers) and walks each run serially,
+// so a hot index is one thread's (a column group's) chain of loads; it
+// takes about twice the time of the design it replaces, shared float atomics
+// (a compare-and-swap loop on the H100, ATOMS.CAST.SPIN), at the LBS
+// shape. The sorted route pays for torch.sort and a serial walk of
+// kSegTile positions a thread; at the strip path's row scatter it takes
+// less time than zeros + index_add_, the design it replaces.
+// PERF.md, Findings, has the times, measured in turns with the atomic
+// designs on an H100.
 //
 // An index outside [0, M) adds nothing on either route.
-constexpr int kBlockThreads = 1024;    // K6/K4 table routes: threads a block
+constexpr int kBlockThreads = 1024;    // K6/K4 table route: threads a block
 constexpr int kBlockWarps = kBlockThreads / 32;
-// the dynamic shared memory a block of K6's (or K4's) table kernel may
-// use: the 227 KB of a block, less K6's static index array
+constexpr int kChunk = kBlockThreads;  // sites a block sorts at a time
+constexpr int kLocalBits = 10;         // a site's place in its chunk, in a key
+constexpr unsigned kLocalMask = (1u << kLocalBits) - 1;
+constexpr unsigned kNoKey = 0xFFFFFFFFu;   // an index outside [0, M)
+constexpr int kColGroup = 4;           // columns a run is summed in at a time
+constexpr int kSegTile = 128;          // sorted positions a thread walks
+// the dynamic shared memory a block of the table route may use: the 227
+// KB of a block, less the static key array of a chunk
 constexpr int kMaxSmem = 232448 - kBlockWarps * 32 * 4;
+static_assert(kChunk == 1 << kLocalBits, "a key holds a chunk's places");
+static_assert(kBlockWarps * 32 * 4 == kChunk * 4, "the key array's size");
 
-// floats of K6's (and K4's) shared table, and of each block's partial:
+// floats of the table route's shared table, and of each block's partial:
 // m * d padded to float4s
 __host__ __device__ inline int64_t table_floats(int m, int d) {
   return ((int64_t)m * d + 3) / 4 * 4;
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
-scatter_rows_block_kernel(const float* __restrict__ g,
-                          const int32_t* __restrict__ idx,
-                          float* __restrict__ part, int m, int d, int64_t s,
-                          int64_t per_block) {
-  extern __shared__ __align__(16) float tab[];
-  __shared__ int wi[kBlockWarps][32];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int64_t tf = table_floats(m, d);
-  for (int i = threadIdx.x; i < tf / 4; i += kBlockThreads)
-    reinterpret_cast<float4*>(tab)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// Where element (site, column) of the cotangent and entry (index, column)
+// of the table lie: K6 (kCols false) g[site * d + col], dtable[j * d +
+// col]; K4 (kCols true) g[col * s + site], dtable[col * m + j]. Each
+// kernel below is built for both.
+template <bool kCols>
+__device__ __forceinline__ int64_t g_at(int64_t site, int col, int d,
+                                        int64_t s) {
+  return kCols ? col * s + site : site * d + col;
+}
+
+template <bool kCols>
+__device__ __forceinline__ int64_t t_at(int j, int col, int m, int d) {
+  return kCols ? (int64_t)col * m + j : (int64_t)j * d + col;
+}
+
+// Sort a chunk's kChunk keys, one a thread, ascending: a bitonic network.
+// A compare-exchange between threads j apart is a register shuffle for j
+// < 32 and goes through `keys` in shared memory, behind two barriers,
+// for j >= 32 (15 of the network's 55 steps). Returns the thread's key
+// in sorted order; `keys` holds the sorted chunk.
+__device__ __forceinline__ unsigned sort_chunk(unsigned key, unsigned* keys) {
+  const int t = threadIdx.x;
+  for (int k = 2; k <= kChunk; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned other;
+      if (j >= 32) {
+        __syncthreads();                 // the last step's reads are done
+        keys[t] = key;
+        __syncthreads();
+        other = keys[t ^ j];
+      } else {
+        other = __shfl_xor_sync(0xffffffffu, key, j);
+      }
+      // an ascending pair leaves the smaller key at the lower thread
+      const bool up = (t & k) == 0, low = (t & j) == 0;
+      key = low == up ? min(key, other) : max(key, other);
+    }
+  }
   __syncthreads();
-  // the block's sites [b0, b1), 32 at a time a warp; lane l takes
-  // elements l, l + 32, ... of the batch's n*d cotangent floats, four
-  // loads in flight before their four shared atomics
+  keys[t] = key;
+  __syncthreads();
+  return key;
+}
+
+template <bool kCols>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+scatter_block_kernel(const float* __restrict__ g,
+                     const int32_t* __restrict__ idx,
+                     float* __restrict__ part, int m, int d, int64_t s,
+                     int64_t per_block) {
+  extern __shared__ __align__(16) float tab[];
+  __shared__ unsigned keys[kChunk];
+  const int t = threadIdx.x;
+  const int64_t tf = table_floats(m, d);
+  for (int i = t; i < tf / 4; i += kBlockThreads)
+    reinterpret_cast<float4*>(tab)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const int64_t b0 = (int64_t)blockIdx.x * per_block;
   const int64_t b1 = min64(s, b0 + per_block);
-  const int dr = 32 / d, dc = 32 - dr * d;     // (row, col) step of 32
-  const int r0 = lane / d, c0 = lane - r0 * d;
-  for (int64_t s0 = b0 + 32 * warp; s0 < b1; s0 += 32 * kBlockWarps) {
-    const int n = (int)min64(32, b1 - s0);
-    wi[warp][lane] = lane < n ? __ldg(idx + s0 + lane) : -1;
-    __syncwarp();
-    const float* src = g + s0 * d;
-    const int ne = n * d;
-    int r = r0, c = c0;
-    for (int e = lane; e < ne; e += 128) {
-      float v[4];
-      int at[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int ek = e + 32 * k;
-        at[k] = -1;
-        if (ek < ne) {
-          const int j = wi[warp][r];
-          v[k] = __ldg(src + ek);
-          if ((unsigned)j < (unsigned)m) at[k] = j * d + c;
-        }
-        r += dr;
-        c += dc;
-        if (c >= d) {
-          c -= d;
-          ++r;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (at[k] >= 0) atomicAdd(&tab[at[k]], v[k]);
+  for (int64_t c0 = b0; c0 < b1; c0 += kChunk) {
+    const int n = (int)min64(kChunk, b1 - c0);
+    unsigned key = kNoKey;
+    if (t < n) {
+      const int j = __ldg(idx + c0 + t);
+      if ((unsigned)j < (unsigned)m) key = ((unsigned)j << kLocalBits) | t;
     }
-    __syncwarp();
+    const unsigned k = sort_chunk(key, keys);
+    const unsigned j = k >> kLocalBits;
+    // the first `groups` threads of a run each sum its column groups
+    // group, group + (run length), ...: every entry has one writer a chunk
+    const int groups = (d + kColGroup - 1) / kColGroup;
+    int a = t;                           // the run's start, if near enough
+    while (a > 0 && t - a < groups && keys[a - 1] >> kLocalBits == j) --a;
+    if (k != kNoKey && t - a < groups &&
+        (a == 0 || keys[a - 1] >> kLocalBits != j)) {
+      int end = t + 1;                   // kNoKey >> kLocalBits is no index
+      while (end < kChunk && keys[end] >> kLocalBits == j) ++end;
+      for (int grp = t - a; grp < groups; grp += end - a) {
+        const int c = grp * kColGroup;
+        float acc[kColGroup] = {};
+        for (int q = a; q < end; ++q) {  // the run's sites in site order
+          const int64_t site = c0 + (keys[q] & kLocalMask);
+#pragma unroll
+          for (int i = 0; i < kColGroup; ++i)
+            if (c + i < d) acc[i] += __ldg(g + g_at<kCols>(site, c + i, d, s));
+        }
+#pragma unroll
+        for (int i = 0; i < kColGroup; ++i)
+          if (c + i < d) tab[t_at<kCols>(j, c + i, m, d)] += acc[i];
+      }
+    }
+    __syncthreads();                     // the chunk's adds, then new keys
   }
   __syncthreads();
   float4* out = reinterpret_cast<float4*>(part + blockIdx.x * tf);
-  for (int i = threadIdx.x; i < tf / 4; i += kBlockThreads)
+  for (int i = t; i < tf / 4; i += kBlockThreads)
     out[i] = reinterpret_cast<const float4*>(tab)[i];
 }
 
-// The second pass of K6 and K4: dtable[e] = the sum of the blocks'
+// The second pass of the table route: dtable[e] = the sum of the blocks'
 // partials at e, in a fixed order. A block of 32 warps takes 32 entries;
 // warp w sums blocks w, w + 32, ... in order, and lane e of warp 0 adds
 // the 32 sums in warp order.
@@ -380,139 +444,156 @@ combine_tables_kernel(const float* __restrict__ part,
   }
 }
 
-// K6's atomic route (see above K6).
-__global__ void scatter_rows_kernel(const float* __restrict__ g,
-                                    const int32_t* __restrict__ idx,
-                                    float* __restrict__ dtable, int m, int d,
-                                    int64_t s) {
-  const int64_t total = s * d;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t row = i / d;
-    const int col = (int)(i - row * d);
-    const int j = idx[row];
-    if (j < 0 || j >= m) continue;
-    atomicAdd(&dtable[(int64_t)j * d + col], g[i]);
-  }
-}
-
-// K4: K2's transpose, dtable[d, idx[s]] += g[d, s] for a (D, S) cotangent
-// into the (D, M) table.
-//
-// Replaces dimo_tpu/ops/smallgather.py:_bwd_kernel_cols (called through
-// _bwd_call_cols by the custom VJP _gc_bwd), a one-hot bf16 hi+lo matmul
-// on the TPU.
-//
-// What bounds it on the H100: bytes, as K6: 1.6 MB of indices and 17.6 MB
-// of cotangent in, a 22.5 KB table out at the LBS shape (D=11, M=512,
-// S=400k), 5.74 us at 3.35 TB/s.
-//
-// K6's two routes in column layout, chosen by the table's size alone by
-// the same rule (ops/smallgather.py, cols_bwd_plan beside rows_bwd_plan):
-// the TABLE route whenever the (D, M) table, padded to float4s, fits a
-// block's dynamic shared memory (kMaxSmem), the ATOMIC route otherwise.
-// Neither is deterministic: both add with float atomics, in an order that
-// varies from run to run.
-//
-// Table route: one wave of 1,024-thread blocks (the occupancy API's
-// resident blocks per SM times the SMs, capped by the 32-site batches:
-// 261 blocks of 1,536 sites at the LBS shape, K6's grid), each over one
-// contiguous range of sites. A block zeroes one shared copy of the (D, M)
-// table; a thread takes one site a step (a warp's index and cotangent
-// loads are 128 coalesced bytes each) and issues kColRows row loads before
-// their shared atomics. The block writes its table as one partial of a
-// blocks x (D x M) scratch (5.9 MB at the LBS shape, in L2), and K6's
-// combine_tables_kernel adds the partials in a fixed order and writes the
-// output: no global atomic, no zeroing of the output.
-//
-// Atomic route, for larger tables: threads walk the sites grid-stride,
-// one index load and D coalesced cotangent loads a site, and add each
-// element into the output (zeroed by the caller) with one global atomic.
-//
-// What holds the table route back: a float atomicAdd on shared memory is
-// a compare-and-swap loop on the H100 (ATOMS.CAST.SPIN in the SASS; on
-// global memory it is one native REDG.E.ADD.F32), 4.4 M of them at the LBS
-// shape, to random banks.
-//
-// Measured in a CUDA graph on NVIDIA H100 80GB HBM3, 700.00 W
-// (chip_smoke.py, PERF.md, Findings), in turns at the LBS shape: 19.33-19.35 us
-// (32 registers, 2 blocks an SM) against 32.18-32.55 for the design it
-// replaced (a grid of 2 blocks of 256 threads an SM adding shared copies
-// into a zeroed output with global atomics), and zeros + index_add_ 384.
-// Designs that lost, in the same runs: a thread owning four sites with
-// one int4 index and one float4 cotangent load a row, as K2 (48 registers,
-// 1 block an SM) 20.97-20.99 us, at 2 blocks an SM 22.51-22.58; one or two
-// rows in flight 19.53-19.54 / 19.29-19.32, eight 19.48-19.52, all eleven
-// 26.56-26.67; 512-thread blocks, 4 an SM, 19.91-20.13; two rows added by
-// one 64-bit compare-and-swap loop 61.8; global atomics into each block's
-// own partial instead of shared ones 59.9-75.4.
-//
-// An index outside [0, M) adds nothing on either route.
-constexpr int kColRows = 4;    // K4: cotangent rows loaded before their adds
-
-__global__ void __launch_bounds__(kBlockThreads, 2)
-scatter_cols_block_kernel(const float* __restrict__ g,
-                          const int32_t* __restrict__ idx,
-                          float* __restrict__ part, int d, int m, int64_t s,
-                          int64_t per_block) {
-  extern __shared__ __align__(16) float tab[];
-  const int64_t tf = table_floats(m, d);
-  for (int i = threadIdx.x; i < tf / 4; i += kBlockThreads)
-    reinterpret_cast<float4*>(tab)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  __syncthreads();
-  const int64_t b0 = (int64_t)blockIdx.x * per_block;
-  const int64_t b1 = min64(s, b0 + per_block);
-  for (int64_t site = b0 + threadIdx.x; site < b1; site += kBlockThreads) {
-    const int j = __ldg(idx + site);
-    if ((unsigned)j >= (unsigned)m) continue;
-    for (int r0 = 0; r0 < d; r0 += kColRows) {
-      float v[kColRows];
+// The sorted route's first pass (see above K6): thread (tile, column).
+// head[tile] receives the tile's first piece when its run began in an
+// earlier tile, tail[tile] its last piece when its run goes on past it.
+// Positions are read kSegLoads at a time, their loads issued together,
+// then added one by one.
+constexpr int kSegLoads = 8;
+template <bool kCols>
+__global__ void __launch_bounds__(256)
+segment_tiles_kernel(const float* __restrict__ g,
+                     const int32_t* __restrict__ keys,
+                     const int64_t* __restrict__ order,
+                     float* __restrict__ dtable, float* __restrict__ head,
+                     float* __restrict__ tail, int m, int d, int64_t s,
+                     int64_t tiles) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= tiles * d) return;
+  const int64_t tile = gid / d;
+  const int c = (int)(gid - tile * d);
+  const int64_t p0 = tile * kSegTile, p1 = min64(s, p0 + kSegTile);
+  const bool from_before = p0 > 0 && keys[p0 - 1] == keys[p0];
+  const bool goes_on = p1 < s && keys[p1] == keys[p1 - 1];
+  float acc = 0.0f;
+  int j = keys[p0];
+  int64_t first = p0;                    // the current piece's start
+  for (int64_t q = p0; q < p1; q += kSegLoads) {
+    int jq[kSegLoads];
+    float v[kSegLoads];
 #pragma unroll
-      for (int i = 0; i < kColRows; ++i)
-        if (r0 + i < d) v[i] = __ldg(g + (int64_t)(r0 + i) * s + site);
+    for (int i = 0; i < kSegLoads; ++i) {
+      if (q + i < p1) {
+        jq[i] = keys[q + i];
+        v[i] = __ldg(g + g_at<kCols>(order[q + i], c, d, s));
+      }
+    }
 #pragma unroll
-      for (int i = 0; i < kColRows; ++i)
-        if (r0 + i < d) atomicAdd(tab + (r0 + i) * m + j, v[i]);
+    for (int i = 0; i < kSegLoads; ++i) {
+      if (q + i >= p1) break;
+      if (jq[i] != j) {                  // the piece [first, q + i) of run j
+        if (first == p0 && from_before)
+          head[tile * d + c] = acc;
+        else if ((unsigned)j < (unsigned)m)
+          dtable[t_at<kCols>(j, c, m, d)] = acc;
+        acc = 0.0f;
+        j = jq[i];
+        first = q + i;
+      }
+      acc += v[i];
     }
   }
-  __syncthreads();
-  float4* out = reinterpret_cast<float4*>(part + blockIdx.x * tf);
-  for (int i = threadIdx.x; i < tf / 4; i += kBlockThreads)
-    out[i] = reinterpret_cast<const float4*>(tab)[i];
-}
-
-// K4's atomic route (see above K4).
-__global__ void scatter_cols_kernel(const float* __restrict__ g,
-                                    const int32_t* __restrict__ idx,
-                                    float* __restrict__ dtable, int d, int m,
-                                    int64_t s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t site = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       site < s; site += stride) {
-    const int j = __ldg(idx + site);
-    if ((unsigned)j >= (unsigned)m) continue;
-    for (int r = 0; r < d; ++r)
-      atomicAdd(dtable + (int64_t)r * m + j, __ldg(g + (int64_t)r * s + site));
+  if (goes_on) {                         // the piece [first, p1) goes on
+    tail[tile * d + c] = acc;
+    if (first == p0 && from_before) head[tile * d + c] = acc;
+  } else if (first == p0 && from_before) {
+    head[tile * d + c] = acc;
+  } else if ((unsigned)j < (unsigned)m) {
+    dtable[t_at<kCols>(j, c, m, d)] = acc;
   }
 }
 
-// Allow the table kernels of K6 and K4 the most dynamic shared memory a
-// block may use, once per device.
+// The sorted route's second pass: the thread (tile, column) of the tile
+// where a run that goes on past the tile starts adds the run's pieces in
+// tile order: its own last piece, then each later tile's first piece. It
+// finds the run's last tile first (a binary search), so the loads of the
+// pieces are issued kSegLoads at a time ahead of their adds.
+template <bool kCols>
+__global__ void __launch_bounds__(256)
+segment_runs_kernel(const int32_t* __restrict__ keys,
+                    const float* __restrict__ head,
+                    const float* __restrict__ tail, float* __restrict__ dtable,
+                    int m, int d, int64_t s, int64_t tiles) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= tiles * d) return;
+  const int64_t tile = gid / d;
+  const int c = (int)(gid - tile * d);
+  const int64_t p0 = tile * kSegTile, p1 = min64(s, p0 + kSegTile);
+  const int j = keys[p1 - 1];
+  if (p1 >= s || keys[p1] != j) return;          // its last run ends here
+  if (p0 > 0 && keys[p0 - 1] == j) return;       // ... or began before it
+  int64_t lo = p1, hi = s;               // the run's end: the first key > j
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (keys[mid] == j) lo = mid + 1; else hi = mid;
+  }
+  const int64_t last = (lo - 1) / kSegTile;      // the run's last tile
+  float acc = tail[tile * d + c];
+  for (int64_t u = tile + 1; u <= last; u += kSegLoads) {
+    float v[kSegLoads];
+#pragma unroll
+    for (int i = 0; i < kSegLoads; ++i)
+      if (u + i <= last) v[i] = head[(u + i) * d + c];
+#pragma unroll
+    for (int i = 0; i < kSegLoads; ++i)
+      if (u + i <= last) acc += v[i];
+  }
+  if ((unsigned)j < (unsigned)m) dtable[t_at<kCols>(j, c, m, d)] = acc;
+}
+
+// Allow the table route's kernel the most dynamic shared memory a block
+// may use, once per device.
 cudaError_t allow_table_smem() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(scatter_rows_block_kernel,
+  e = cudaFuncSetAttribute(scatter_block_kernel<false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(scatter_cols_block_kernel,
+    e = cudaFuncSetAttribute(scatter_block_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
+}
+
+// The table route (both passes) of K6 or K4.
+template <bool kCols>
+int scatter_tables(const float* g, const int32_t* idx, float* part,
+                   float* dtable, int m, int d, int64_t s, int blocks,
+                   int64_t per_block, int64_t smem, cudaStream_t stream) {
+  if (smem != 4 * table_floats(m, d) || smem > kMaxSmem || blocks < 1 ||
+      (int64_t)blocks * per_block < s || m >= (1 << (32 - kLocalBits)) - 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_table_smem();
+  if (e != cudaSuccess) return (int)e;
+  scatter_block_kernel<kCols><<<blocks, kBlockThreads, (size_t)smem,
+                                 stream>>>(g, idx, part, m, d, s, per_block);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int tn = m * d;
+  combine_tables_kernel<<<(tn + 31) / 32, 32 * kCombineWarps, 0, stream>>>(
+      part, dtable, tn, table_floats(m, d), blocks);
+  return (int)cudaGetLastError();
+}
+
+// The sorted route (both passes) of K6, K4 or the row scatter.
+template <bool kCols>
+int scatter_sorted(const float* g, const int32_t* keys, const int64_t* order,
+                   float* head, float* tail, float* dtable, int m, int d,
+                   int64_t s, cudaStream_t stream) {
+  if (s <= 0 || d <= 0) return 0;
+  const int64_t tiles = (s + kSegTile - 1) / kSegTile;
+  const int64_t blocks = (tiles * d + 255) / 256;
+  segment_tiles_kernel<kCols><<<(unsigned)blocks, 256, 0, stream>>>(
+      g, keys, order, dtable, head, tail, m, d, s, tiles);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  segment_runs_kernel<kCols><<<(unsigned)blocks, 256, 0, stream>>>(
+      keys, head, tail, dtable, m, d, s, tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -552,39 +633,27 @@ extern "C" int gather_small_rows_bwd_tables(const float* g, const int32_t* idx,
                                             int d, int64_t s, int blocks,
                                             int64_t per_block, int64_t smem,
                                             cudaStream_t stream) {
-  if (smem != 4 * table_floats(m, d) || smem > kMaxSmem || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_table_smem();
-  if (e != cudaSuccess) return (int)e;
-  scatter_rows_block_kernel<<<blocks, kBlockThreads, (size_t)smem, stream>>>(
-      g, idx, part, m, d, s, per_block);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int tn = m * d;
-  combine_tables_kernel<<<(tn + 31) / 32, 32 * kCombineWarps, 0, stream>>>(
-      part, dtable, tn, table_floats(m, d), blocks);
-  return (int)cudaGetLastError();
+  return scatter_tables<false>(g, idx, part, dtable, m, d, s, blocks,
+                               per_block, smem, stream);
 }
 
-// K6's atomic route. g: (s, d) float32; dtable: (m, d) float32, zeroed by
-// the caller. Returns cudaError_t.
-extern "C" int gather_small_rows_bwd_atomics(const float* g,
-                                             const int32_t* idx,
-                                             float* dtable, int m, int d,
-                                             int64_t s, int num_sms,
-                                             cudaStream_t stream) {
-  int64_t blocks = (s * d + kThreads - 1) / kThreads;
-  const int64_t cap = 2 * (int64_t)num_sms;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  scatter_rows_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      g, idx, dtable, m, d, s);
-  return (int)cudaGetLastError();
+// K6's sorted route, and the row scatter. g: (s, d) float32; keys: (s,)
+// int32, the indices sorted stably; order: (s,) int64, the site of each
+// sorted position; head, tail: (ceil(s / kSegTile), d) float32 scratch;
+// dtable: (m, d) float32, zeroed by the caller. Returns cudaError_t.
+extern "C" int gather_small_rows_bwd_sorted(const float* g,
+                                            const int32_t* keys,
+                                            const int64_t* order, float* head,
+                                            float* tail, float* dtable, int m,
+                                            int d, int64_t s,
+                                            cudaStream_t stream) {
+  return scatter_sorted<false>(g, keys, order, head, tail, dtable, m, d, s,
+                               stream);
 }
 
-// blocks: (3,) int32, receives the resident blocks per SM of K5, of K6's
-// table kernel at `smem` bytes of dynamic shared memory, and of K6's
-// second pass on the current device. Returns cudaError_t.
+// blocks: (3,) int32, receives the resident blocks per SM of K5, of the
+// table route's kernel at `smem` bytes of dynamic shared memory, and of
+// its second pass on the current device. Returns cudaError_t.
 extern "C" int gather_small_rows_occupancy(int64_t smem, int* blocks) {
   cudaError_t e = allow_table_smem();
   if (e == cudaSuccess)
@@ -592,7 +661,8 @@ extern "C" int gather_small_rows_occupancy(int64_t smem, int* blocks) {
         &blocks[0], gather_rows_kernel, kThreads, 0);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks[1], scatter_rows_block_kernel, kBlockThreads, (size_t)smem);
+        &blocks[1], scatter_block_kernel<false>, kBlockThreads,
+        (size_t)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks[2], combine_tables_kernel, 32 * kCombineWarps, 0);
@@ -609,45 +679,30 @@ extern "C" int gather_small_cols_bwd_tables(const float* g, const int32_t* idx,
                                             int m, int64_t s, int blocks,
                                             int64_t per_block, int64_t smem,
                                             cudaStream_t stream) {
-  if (smem != 4 * table_floats(m, d) || smem > kMaxSmem || blocks < 1 ||
-      (int64_t)blocks * per_block < s)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_table_smem();
-  if (e != cudaSuccess) return (int)e;
-  scatter_cols_block_kernel<<<blocks, kBlockThreads, (size_t)smem, stream>>>(
-      g, idx, part, d, m, s, per_block);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int tn = m * d;
-  combine_tables_kernel<<<(tn + 31) / 32, 32 * kCombineWarps, 0, stream>>>(
-      part, dtable, tn, table_floats(m, d), blocks);
-  return (int)cudaGetLastError();
+  return scatter_tables<true>(g, idx, part, dtable, m, d, s, blocks,
+                              per_block, smem, stream);
 }
 
-// K4's atomic route. g: (d, s) float32; dtable: (d, m) float32, zeroed by
-// the caller. Returns cudaError_t.
-extern "C" int gather_small_cols_bwd_atomics(const float* g,
-                                             const int32_t* idx,
-                                             float* dtable, int d, int m,
-                                             int64_t s, int num_sms,
-                                             cudaStream_t stream) {
-  int64_t blocks = (s + kThreads - 1) / kThreads;
-  const int64_t cap = 8 * (int64_t)num_sms;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  scatter_cols_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      g, idx, dtable, d, m, s);
-  return (int)cudaGetLastError();
+// K4's sorted route. g: (d, s) float32; keys, order, head, tail as K6's;
+// dtable: (d, m) float32, zeroed by the caller. Returns cudaError_t.
+extern "C" int gather_small_cols_bwd_sorted(const float* g,
+                                            const int32_t* keys,
+                                            const int64_t* order, float* head,
+                                            float* tail, float* dtable, int d,
+                                            int m, int64_t s,
+                                            cudaStream_t stream) {
+  return scatter_sorted<true>(g, keys, order, head, tail, dtable, m, d, s,
+                              stream);
 }
 
-// blocks: (2,) int32, receives the resident blocks per SM of K4's table
-// kernel at `smem` bytes of dynamic shared memory and of its second pass
-// (K6's) on the current device. Returns cudaError_t.
+// blocks: (2,) int32, receives the resident blocks per SM of the table
+// route's kernel at `smem` bytes of dynamic shared memory and of its second
+// pass on the current device. Returns cudaError_t.
 extern "C" int gather_small_cols_occupancy(int64_t smem, int* blocks) {
   cudaError_t e = allow_table_smem();
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks[0], scatter_cols_block_kernel, kBlockThreads, (size_t)smem);
+        &blocks[0], scatter_block_kernel<true>, kBlockThreads, (size_t)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks[1], combine_tables_kernel, 32 * kCombineWarps, 0);

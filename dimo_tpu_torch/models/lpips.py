@@ -30,7 +30,11 @@ measurement, so float32 ships (`ROADMAP.md` Queue C). Each convolution is
 an `autograd.Function` whose forward and backward both set cuDNN's TF32
 flag for their own calls (`utils.general.cudnn_tf32`): the backward keeps
 the forward's precision whatever the global flags are when
-`loss.backward()` runs, and no global flag changes. `LPIPS(tf32=True)`
+`loss.backward()` runs, and no global flag changes. The same context
+restricts cuDNN to deterministic algorithms: the input gradient of one
+LPIPS call computed twice differed by up to 2.8e-14 under cuDNN's default
+pick (H100, `chip_smoke.py --phase determinism`), and is the same bits
+under the restriction. `LPIPS(tf32=True)`
 runs both passes in TF32 (the comparison above).
 """
 from __future__ import annotations

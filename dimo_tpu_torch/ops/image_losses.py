@@ -12,7 +12,8 @@ Precision: SSIM subtracts blurred squares (sigma^2 = blur(x^2) - mu^2), a
 cancellation that TF32's ~3 decimal digits destroy. The reference forces
 float32; here the depthwise blur runs with cuDNN's TF32 off, in the
 forward and in the backward alike (the blur is its own adjoint), through a
-scoped `utils.general.cudnn_tf32(False)` that restores every global flag.
+scoped `utils.general.cudnn_tf32(False)` that restores every global flag
+(and picks deterministic algorithms only).
 Differences of pixels use `jnp.abs`'s slope +1 at 0 (flat depth and
 equal colours give exact zeros).
 """

@@ -1,11 +1,20 @@
-"""Row gather of per-gaussian attribute rows, with a segment-sum backward.
+"""Row gather of per-gaussian attribute rows, with a fixed-order segment-sum
+backward (the strip path's row scatter).
 
 Counterpart of `dimo_tpu/ops/rasterizer/gather.py::gather_rows`. The
 reference wraps the gather in a sort + cumsum custom VJP because a
-scatter-add serialises on the TPU. On the card a float32 `index_add_`
-(atomic adds) is the natural segment sum, and it avoids the reference's
-cumsum differences, which lose digits on rows hit by many slots; so the
-backward here is `index_add_`, on the CPU and on the card alike.
+scatter-add serialises on the TPU; its sums are the same bits on every
+run. The port's backward is the sorted route of K6
+(`ops/smallgather.py::scatter_sorted`, `csrc/smallgather.cu`): a stable
+sort of the slots by row, then each row's slots summed in slot order, a
+tile of sorted positions at a time, the pieces added in tile order. So it
+is the same bits on every run, as the reference's, without the
+reference's cumsum differences, which lose digits on rows hit by many
+slots (the dummy row of the padded list slots among them). It has no TPU
+kernel of its own: the reference's is plain XLA. On a CUDA tensor it
+launches the kernel (counted in `launches`); on a CPU tensor it runs the
+same sums in the same order (`smallgather.scatter_sorted_plain`), so the two
+agree bit for bit.
 
 On the render path kernel K1 reads `coef_table` rows by list index
 itself; the compositor's backward (kernel K3) emits per-slot row grads,
@@ -15,13 +24,32 @@ from __future__ import annotations
 
 import torch
 
+from dimo_tpu_torch.ops import smallgather as sg
+
+# launches of the row scatter's kernels since the last reset (chip_smoke
+# reads it)
+launches = 0
+
 
 def gather_rows_bwd(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tensor:
     """Transpose of `gather_rows`: g (T, C, A) at idx (T, C) -> (m, A),
-    dattrs[k] = sum of g over the slots with idx == k."""
+    dattrs[k] = sum of g over the slots with idx == k, in a fixed order;
+    a slot whose index lies outside [0, m) adds nothing."""
+    global launches
     a = g.shape[-1]
-    out = torch.zeros((m, a), dtype=g.dtype, device=g.device)
-    return out.index_add_(0, idx.reshape(-1).long(), g.reshape(-1, a))
+    flat = idx.reshape(-1)
+    g2 = g.reshape(-1, a)
+    if g.device.type == "cpu":
+        return sg.scatter_sorted_plain(g2, flat.long(), m)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    flat = flat.to(torch.int32).contiguous()
+    g2 = g2.contiguous()
+    sg._rows_check("gather_rows_bwd", g2, flat, m, a)
+    out = sg.scatter_sorted(g2, flat, m, a)
+    if flat.numel() and m and a:
+        launches += 1
+    return out
 
 
 class _GatherRows(torch.autograd.Function):

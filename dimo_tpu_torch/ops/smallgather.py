@@ -25,14 +25,21 @@ route: an unsupported input raises.
 Numerics: the TPU kernels gather and scatter `hi + lo` (a bf16 split of
 each value, ~2^-17 relative error); the port's are exact float32, so the
 port is compared with the reference at 2e-5 of the values' scale. K4 and
-K6 add with atomics, in an order that varies from run to run. Each takes
-one of two routes by the table's size alone, by one rule (`rows_bwd_plan`,
-which `cols_bwd_plan` calls): shared atomics into a copy
-of the table per block, whose partial tables a second pass adds in a
-fixed order, or, for a table too large for that, global atomics. The
-reference runs column tables above `MAX_M = 1024` through a plain one-hot
-product (`_gather_cols_xla`); K2 reads the table from device memory, so
-the column pair, too, takes any M.
+K6 add without atomics, each entry in a fixed order (`csrc/smallgather.cu`
+says which), so a run on the card gives the same bits every time, as the
+reference's grid, which the TPU runs in order, does. Each takes one of two
+routes by the table's size alone, by one rule (`rows_bwd_plan`, which
+`cols_bwd_plan` calls): a copy of the table per block in shared memory,
+each chunk of sites sorted by index there and each run of an index summed
+by one thread, the blocks' partial tables then added in a fixed order; or,
+for a table too large for that, a stable sort of the sites by index and a
+segment sum of each run (`scatter_sorted`, which the strip path's row
+scatter, `ops/rasterizer/gather.py`, also runs). The plain versions sum in
+the same orders (the table route's given the card's plan), so on the card
+each kernel equals its plain version bit for bit. The reference runs column
+tables above `MAX_M = 1024` through a plain one-hot product
+(`_gather_cols_xla`); K2 reads the table from device memory, so the column
+pair, too, takes any M.
 """
 from __future__ import annotations
 
@@ -53,32 +60,33 @@ rows_bwd_launches = 0
 _GATHER_COLS_ARGTYPES = ([ctypes.c_void_p] * 3
                          + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_void_p])
-# cotangent, idx, dtable, d, m, s, num_sms, stream (K4's atomic route)
-_COLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+# table, idx, out, m, d, s, num_sms, stream (K5)
+_ROWS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p])
-# table/cotangent, idx, out, m, d, s, num_sms, stream (K5, K6's atomic
-# route)
-_ROWS_ARGTYPES = _COLS_ARGTYPES
+# cotangent, sorted keys, their sites, head, tail, dtable, m, d, s, stream
+# (the sorted route; K4's takes d before m)
+_SORTED_ARGTYPES = ([ctypes.c_void_p] * 6
+                    + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_void_p])
 # cotangent, idx, part, dtable, m, d, s, blocks, per_block, smem, stream
 # (K6's table route; K4's takes d before m)
 _TABLES_ARGTYPES = ([ctypes.c_void_p] * 4
                     + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_void_p])
-# The table routes of K6 and K4 (csrc/smallgather.cu, above K6 and K4):
-# one copy of the table, padded to float4s, in each block's shared memory;
-# the table may take SMEM_LIMIT bytes of dynamic shared memory, the 227 KB
-# of an H100 block less K6's 4 KB of static index arrays (the kernels'
+# The table route of K6 and K4 (csrc/smallgather.cu, above K6): one copy
+# of the table, padded to float4s, in each block's shared memory; the table
+# may take SMEM_LIMIT bytes of dynamic shared memory, the 227 KB of an H100
+# block less the 4 KB of a chunk's static key array (the kernels'
 # kMaxSmem; a launch refuses a size that differs from its layout). A
 # block's range of sites is whole batches of BATCH, one warp's coalesced
-# load.
+# load, taken CHUNK sites at a time (kChunk). The sorted route's first
+# pass cuts the sorted sites into tiles of SEG_TILE (kSegTile).
 SMEM_LIMIT = 232_448 - 4_096
 BATCH = 32
-# sites per one-hot product in the plain backward, and the most elements
-# one such product's one-hot may hold (they bound its memory)
-_PLAIN_CHUNK = 1 << 16
-_PLAIN_ONEHOT = 1 << 26
+CHUNK = 1024
+SEG_TILE = 128
 
 
 def gather_small_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -93,22 +101,16 @@ def gather_small_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.T
     return out.reshape(d, *idx.shape)
 
 
-def gather_small_cols_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
-                                m: int) -> torch.Tensor:
+def gather_small_cols_bwd_plain(g: torch.Tensor, idx: torch.Tensor, m: int,
+                                plan: tuple[int, int] | None = None
+                                ) -> torch.Tensor:
     """Plain version of kernel K4: g (D, ...) cotangent at idx (...) ->
     (D, m) float32, dtable[d, j] = sum of g[d, s] over the sites with
-    idx[s] == j; indices outside [0, m) add nothing. A one-hot product in
-    chunks of sites, the reference kernel's formula in float32."""
+    idx[s] == j; indices outside [0, m) add nothing. K6's plain version on
+    the transposed layout: the same sums in the same order."""
     d = g.shape[0]
-    flat = idx.reshape(-1).long()
-    g2 = g.reshape(d, -1).float()
-    cols = torch.arange(m, device=g.device)
-    out = torch.zeros((d, m), dtype=torch.float32, device=g.device)
-    chunk = max(1, min(_PLAIN_CHUNK, _PLAIN_ONEHOT // max(m, 1)))
-    for i in range(0, flat.shape[0], chunk):
-        oh = (flat[i:i + chunk, None] == cols[None, :]).float()
-        out = out + g2[:, i:i + chunk] @ oh
-    return out
+    return gather_small_bwd_plain(g.reshape(d, -1).T, idx.reshape(-1), m,
+                                  plan).T.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,26 +155,12 @@ def _scatter_cols_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tens
     dev = g.device
     if g2.numel() == 0 or m == 0:
         return torch.zeros((d, m), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     route, blocks, per_block = cols_bwd_plan(
         d, m, s, lambda smem: cols_occupancy(dev, smem)[0], _num_sms(dev))
     if route == "tables":
-        part = torch.empty((blocks, (m * d + 3) // 4 * 4),
-                           dtype=torch.float32, device=dev)
-        out = torch.empty((d, m), dtype=torch.float32, device=dev)
-        fn = build.function("smallgather", "gather_small_cols_bwd_tables",
-                            _TABLES_ARGTYPES)
-        build.check(fn(g2.data_ptr(), flat.data_ptr(), part.data_ptr(),
-                       out.data_ptr(), d, m, s, blocks, per_block,
-                       rows_bwd_smem(m, d), stream),
-                    "gather_small_cols_bwd_tables")
+        out = _scatter_tables(g2, flat, m, d, blocks, per_block, cols=True)
     else:
-        out = torch.zeros((d, m), dtype=torch.float32, device=dev)
-        fn = build.function("smallgather", "gather_small_cols_bwd_atomics",
-                            _COLS_ARGTYPES)
-        build.check(fn(g2.data_ptr(), flat.data_ptr(), out.data_ptr(), d, m,
-                       s, _num_sms(dev), stream),
-                    "gather_small_cols_bwd_atomics")
+        out = scatter_sorted(g2, flat, m, d, cols=True)
     bwd_launches += 1
     return out
 
@@ -233,22 +221,97 @@ def gather_small_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, d)
 
 
-def gather_small_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
-                           m: int) -> torch.Tensor:
+def _ordered_sums(vals: torch.Tensor, key: torch.Tensor):
+    """vals (n, D), key (n,) int64 -> (the distinct keys ascending (G,),
+    (G, D) sums): each key's rows of vals added one by one in row order,
+    from 0, as a kernel's thread adds them (one float32 rounding an add)."""
+    order = torch.sort(key, stable=True).indices
+    ks = key[order]
+    n = ks.shape[0]
+    new = torch.ones(n, dtype=torch.bool, device=key.device)
+    new[1:] = ks[1:] != ks[:-1]
+    gid = torch.cumsum(new, 0) - 1
+    starts = torch.nonzero(new)[:, 0]
+    rank = torch.arange(n, device=key.device) - starts[gid]
+    acc = torch.zeros((starts.shape[0], vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    by_rank = torch.sort(rank, stable=True).indices
+    lo = 0
+    for count in torch.bincount(rank).tolist():
+        at = by_rank[lo:lo + count]           # one row of each key at most
+        acc[gid[at]] = acc[gid[at]] + vals[order[at]]
+        lo += count
+    return ks[starts], acc
+
+
+def _tables_plain(vals: torch.Tensor, flat: torch.Tensor, m: int,
+                  blocks: int, per_block: int) -> torch.Tensor:
+    """The table route's sums, in its order (csrc/smallgather.cu, above
+    K6): vals (S, D) -> (m, D)."""
+    s, d = vals.shape
+    dev = vals.device
+    site = torch.arange(s, device=dev)
+    block = site // per_block
+    chunks = -(-per_block // CHUNK)               # chunks a block
+    chunk = block * chunks + (site - block * per_block) // CHUNK
+    ok = (flat >= 0) & (flat < m)
+    keys, sums = _ordered_sums(vals[ok], chunk[ok] * m + flat[ok])
+    run_chunk, run_j = keys // m, keys % m
+    tables = torch.zeros((blocks, m, d), dtype=torch.float32, device=dev)
+    for k in range(chunks):                        # a block's chunks in order
+        at = run_chunk % chunks == k
+        b, j = run_chunk[at] // chunks, run_j[at]
+        tables[b, j] = tables[b, j] + sums[at]
+    # combine_tables_kernel: warp w adds blocks w, w + 32, ...; then warp
+    # order
+    red = torch.zeros((32, m, d), dtype=torch.float32, device=dev)
+    for b0 in range(0, blocks, 32):
+        n = min(32, blocks - b0)
+        red[:n] = red[:n] + tables[b0:b0 + n]
+    out = red[0]
+    for w in range(1, 32):
+        out = out + red[w]
+    return out
+
+
+def scatter_sorted_plain(vals: torch.Tensor, flat: torch.Tensor,
+                         m: int) -> torch.Tensor:
+    """Plain version of the sorted route (`scatter_sorted`): its sums in its
+    order (csrc/smallgather.cu, above K6), vals (S, D) at flat (S,) int64
+    -> (m, D), of vals' dtype."""
+    s, d = vals.shape
+    dev = vals.device
+    out = torch.zeros((m, d), dtype=vals.dtype, device=dev)
+    if s == 0:
+        return out
+    keys, order = torch.sort(flat, stable=True)
+    tile = torch.arange(s, device=dev) // SEG_TILE
+    new = torch.ones(s, dtype=torch.bool, device=dev)
+    new[1:] = (keys[1:] != keys[:-1]) | (tile[1:] != tile[:-1])
+    _, pieces = _ordered_sums(vals[order], torch.cumsum(new, 0) - 1)
+    piece_key = keys[new]
+    ok = (piece_key >= 0) & (piece_key < m)
+    runs, sums = _ordered_sums(pieces[ok], piece_key[ok])
+    out[runs] = sums
+    return out
+
+
+def gather_small_bwd_plain(g: torch.Tensor, idx: torch.Tensor, m: int,
+                           plan: tuple[int, int] | None = None
+                           ) -> torch.Tensor:
     """Plain version of kernel K6: g (..., D) cotangent at idx (...) ->
     (m, D) float32, dtable[j, :] = sum of g[s, :] over the sites with
-    idx[s] == j; indices outside [0, m) add nothing. A one-hot product in
-    chunks of sites, the reference kernel's formula in float32."""
+    idx[s] == j; indices outside [0, m) add nothing. The kernel's sums in
+    its order: a table that fits shared memory by the table route's, with
+    `plan` = (blocks, sites a block) of the card's `rows_bwd_plan` (None:
+    one block of every site), a larger one by the sorted route's."""
     d = g.shape[-1]
     flat = idx.reshape(-1).long()
-    g2 = g.reshape(-1, d).float()
-    cols = torch.arange(m, device=g.device)
-    out = torch.zeros((m, d), dtype=torch.float32, device=g.device)
-    chunk = max(1, min(_PLAIN_CHUNK, _PLAIN_ONEHOT // max(m, 1)))
-    for i in range(0, flat.shape[0], chunk):
-        oh = (flat[i:i + chunk, None] == cols[None, :]).float()
-        out = out + oh.T @ g2[i:i + chunk]
-    return out
+    vals = g.reshape(-1, d).float()
+    if rows_bwd_smem(m, d) > SMEM_LIMIT:
+        return scatter_sorted_plain(vals, flat, m)
+    blocks, per_block = plan or (1, max(flat.shape[0], 1))
+    return _tables_plain(vals, flat, m, blocks, per_block)
 
 
 def rows_bwd_smem(m: int, d: int) -> int:
@@ -262,7 +325,7 @@ def rows_bwd_plan(m: int, d: int, s: int, blocks_per_sm, num_sms: int
                   ) -> tuple[str, int, int]:
     """K6's route for an (m, d) table and s sites: ("tables", blocks,
     sites per block) when the table fits a block's shared memory, else
-    ("atomics", 0, 0). This is the one place of the size rule, K4's too
+    ("sorted", 0, 0). This is the one place of the size rule, K4's too
     (`cols_bwd_plan`). The table route's grid is one wave,
     `blocks_per_sm(smem)` (the occupancy API at `rows_bwd_smem` bytes;
     called only for that route) times `num_sms`, capped by the BATCH-site
@@ -271,7 +334,7 @@ def rows_bwd_plan(m: int, d: int, s: int, blocks_per_sm, num_sms: int
     up to a multiple of 4) floats."""
     smem = rows_bwd_smem(m, d)
     if smem > SMEM_LIMIT:
-        return "atomics", 0, 0
+        return "sorted", 0, 0
     batches = -(-s // BATCH)
     blocks = max(1, min(blocks_per_sm(smem) * num_sms, batches))
     per = -(-batches // blocks)               # batches a block
@@ -287,8 +350,8 @@ def cols_bwd_plan(d: int, m: int, s: int, blocks_per_sm, num_sms: int
 
 @functools.lru_cache(maxsize=None)
 def rows_occupancy(device: torch.device, smem: int) -> tuple[int, int, int]:
-    """Resident blocks per SM of K5, of K6's table-route kernel at `smem`
-    bytes of shared memory, and of K6's second pass (the CUDA occupancy
+    """Resident blocks per SM of K5, of the table route's kernel at `smem`
+    bytes of shared memory, and of its second pass (the CUDA occupancy
     API on the kernels as built)."""
     blocks = (ctypes.c_int * 3)()
     fn = build.function("smallgather", "gather_small_rows_occupancy",
@@ -301,9 +364,9 @@ def rows_occupancy(device: torch.device, smem: int) -> tuple[int, int, int]:
 
 @functools.lru_cache(maxsize=None)
 def cols_occupancy(device: torch.device, smem: int) -> tuple[int, int]:
-    """Resident blocks per SM of K4's table-route kernel at `smem` bytes
-    of shared memory and of its second pass (the CUDA occupancy API on the
-    kernels as built)."""
+    """Resident blocks per SM of the table route's kernel (K4's and K6's)
+    at `smem` bytes of shared memory and of its second pass (the CUDA
+    occupancy API on the kernels as built)."""
     blocks = (ctypes.c_int * 2)()
     fn = build.function("smallgather", "gather_small_cols_occupancy",
                         [ctypes.c_int64, ctypes.c_void_p])
@@ -344,6 +407,48 @@ def _gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, d)
 
 
+def _scatter_tables(g2: torch.Tensor, flat: torch.Tensor, m: int, d: int,
+                    blocks: int, per_block: int, cols: bool) -> torch.Tensor:
+    """The table route of K6 (g2 (s, d) -> (m, d)) or, `cols`, K4 (g2 (d,
+    s) -> (d, m))."""
+    dev = g2.device
+    part = torch.empty((blocks, (m * d + 3) // 4 * 4), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((d, m) if cols else (m, d), dtype=torch.float32,
+                      device=dev)
+    name = f"gather_small_{'cols' if cols else 'rows'}_bwd_tables"
+    fn = build.function("smallgather", name, _TABLES_ARGTYPES)
+    build.check(fn(g2.data_ptr(), flat.data_ptr(), part.data_ptr(),
+                   out.data_ptr(), *((d, m) if cols else (m, d)),
+                   flat.shape[0], blocks, per_block, rows_bwd_smem(m, d),
+                   torch.cuda.current_stream(dev).cuda_stream), name)
+    return out
+
+
+def scatter_sorted(g2: torch.Tensor, flat: torch.Tensor, m: int, d: int,
+                   cols: bool = False) -> torch.Tensor:
+    """The sorted route on the card: `torch.sort` (stable) of the int32
+    indices, then the two passes of the segment sum. g2 (s, d) -> (m, d),
+    or, `cols`, g2 (d, s) -> (d, m). Counts no launch (its callers do)."""
+    dev = g2.device
+    s = flat.shape[0]
+    out = torch.zeros((d, m) if cols else (m, d), dtype=torch.float32,
+                      device=dev)
+    if s == 0 or m == 0 or d == 0:
+        return out
+    keys, order = torch.sort(flat, stable=True)
+    tiles = -(-s // SEG_TILE)
+    head = torch.empty((tiles, d), dtype=torch.float32, device=dev)
+    tail = torch.empty((tiles, d), dtype=torch.float32, device=dev)
+    name = f"gather_small_{'cols' if cols else 'rows'}_bwd_sorted"
+    fn = build.function("smallgather", name, _SORTED_ARGTYPES)
+    build.check(fn(g2.data_ptr(), keys.data_ptr(), order.data_ptr(),
+                   head.data_ptr(), tail.data_ptr(), out.data_ptr(),
+                   *((d, m) if cols else (m, d)), s,
+                   torch.cuda.current_stream(dev).cuda_stream), name)
+    return out
+
+
 def _scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tensor:
     global rows_bwd_launches
     d = g.shape[-1]
@@ -354,26 +459,12 @@ def _scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tens
     dev = g.device
     if g2.numel() == 0 or m == 0:
         return torch.zeros((m, d), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     route, blocks, per_block = rows_bwd_plan(
         m, d, s, lambda smem: rows_occupancy(dev, smem)[1], _num_sms(dev))
     if route == "tables":
-        part = torch.empty((blocks, (m * d + 3) // 4 * 4),
-                           dtype=torch.float32, device=dev)
-        out = torch.empty((m, d), dtype=torch.float32, device=dev)
-        fn = build.function("smallgather", "gather_small_rows_bwd_tables",
-                            _TABLES_ARGTYPES)
-        build.check(fn(g2.data_ptr(), flat.data_ptr(), part.data_ptr(),
-                       out.data_ptr(), m, d, s, blocks, per_block,
-                       rows_bwd_smem(m, d), stream),
-                    "gather_small_rows_bwd_tables")
+        out = _scatter_tables(g2, flat, m, d, blocks, per_block, cols=False)
     else:
-        out = torch.zeros((m, d), dtype=torch.float32, device=dev)
-        fn = build.function("smallgather", "gather_small_rows_bwd_atomics",
-                            _ROWS_ARGTYPES)
-        build.check(fn(g2.data_ptr(), flat.data_ptr(), out.data_ptr(), m, d,
-                       s, _num_sms(dev), stream),
-                    "gather_small_rows_bwd_atomics")
+        out = scatter_sorted(g2, flat, m, d)
     rows_bwd_launches += 1
     return out
 

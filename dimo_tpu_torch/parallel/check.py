@@ -296,8 +296,9 @@ def card_worker(rank: int, world: int, init_file: str, out_dir: str,
            "grad_rel_l2": {k: float(np.linalg.norm(g[k] - g_ref[k])
                                     / max(np.linalg.norm(g_ref[k]), 1e-30))
                            for k in g}}
-    # the unsharded step's own spread: two runs from one state (the
-    # float atomics of K4 and `index_add_` add in any order)
+    # the unsharded step's own spread: two runs from one state (0 on the
+    # card since the scatter-adds sum in a fixed order; kept as a check of
+    # the comparison's floor)
     g_warm = fresh_grads(warm_state)
     out["ref_spread_rel_l2"] = {
         k: float(np.linalg.norm(g_warm[k] - g_ref[k])

@@ -9,10 +9,13 @@ backward kernels (K3, K4) for every render.
 Loss (the reference's `loss_fn`, same weights and gates):
   * per-image weighted MSE, per-motion SSIM and mask MSE, KL when `vae`;
   * with an `lpips_fn`, `lambda_lpips` times the sum over motions of the
-    mean LPIPS distance of the motion's renders to their GT, one motion
-    at a time as the reference's `lax.map` does (its `jax.checkpoint`
-    bounds memory on 16 GB of HBM and changes no value; not used here);
-    the GT tower records no gradient;
+    mean LPIPS distance of the motion's renders to their GT. The
+    reference maps over the motions (`lax.map`, with a `jax.checkpoint`
+    that bounds memory on 16 GB of HBM and changes no value); here one
+    call takes all of this rank's renders, since the distances are per
+    image, and cuDNN's deterministic backward (`models/lpips.py`) costs
+    less on the whole batch than on each motion's (`chip_smoke.py
+    --phase timing`); the GT tower records no gradient;
   * edge-aware depth and bilateral normal smoothness, gated by
     step > depth/normal_reg_start_iter;
   * ARAP over `arap_t_samples` TimeNet times: in s2 on the control
@@ -295,8 +298,7 @@ def make_train_step(
         if tuple(gt_m.shape[2:]) != (height, width):
             gt_m = resize_linear(gt_m, height, width)
         if lpips_fn is not None:
-            lp = motion_terms(lambda a, b: torch.mean(lpips_fn(a, b)),
-                              imgs, gt)
+            lp = motion_terms(torch.mean, lpips_fn(imgs, gt))
             if mark is not None:
                 mark("lpips")
         else:

@@ -5,7 +5,9 @@ the card where the reference blocks on its arrays, `profile_trace` is a
 `torch.profiler` trace (CPU and, where there is a card, CUDA activity)
 written as a Chrome trace, and the NaN checks are autograd's anomaly
 mode. `device_busy_share` reads such a trace: the share of a window that
-the card spent in kernels.
+the card spent in kernels. `run_fingerprint` / `fingerprint_diff` hold
+two training runs to the reference's promise of a deterministic program:
+the same seed and data leave the same bits.
 """
 from __future__ import annotations
 
@@ -120,3 +122,59 @@ def enable_nan_checks():
 
 def disable_nan_checks():
     torch.autograd.set_detect_anomaly(False)
+
+
+def run_fingerprint(trainer) -> dict:
+    """What a `Trainer` run leaves, copied to the host: every parameter
+    leaf and Adam moment, the Adam step, the active masks, the stage and
+    step, and the bytes of every file under `opt.save_path`."""
+    from dimo_tpu_torch.train import optim
+    s = trainer.state
+    cpu = lambda t: t.detach().cpu().clone()               # noqa: E731
+    files = {}
+    root = str(trainer.opt.save_path)
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                files[os.path.relpath(path, root)] = f.read()
+    return {"params": {k: cpu(v) for k, v in
+                       optim.named_leaves(s.params).items()},
+            "mu": {k: cpu(v) for k, v in s.opt.mu.items()},
+            "nu": {k: cpu(v) for k, v in s.opt.nu.items()},
+            "active": cpu(s.aux.active), "c_active": cpu(s.aux.c_active),
+            "counters": (trainer.stage, trainer.step, int(s.opt.step)),
+            "files": files}
+
+
+def fingerprint_diff(a: dict, b: dict) -> dict:
+    """Where two `run_fingerprint`s differ: {"params" | "mu" | "nu":
+    {param group: max |a - b| over its leaves}, "files": [names whose
+    bytes differ or that only one run wrote], "other": [differing keys]},
+    listing only what is not bit-identical (`torch.equal`); {} when the
+    runs are the same bits."""
+    from dimo_tpu_torch.train import optim
+    out = {}
+    for part in ("params", "mu", "nu"):
+        groups = {}
+        for k in sorted(set(a[part]) | set(b[part])):
+            x, y = a[part].get(k), b[part].get(k)
+            if x is not None and y is not None and torch.equal(x, y):
+                continue
+            same_shape = x is not None and y is not None and x.shape == y.shape
+            diff = (float((x.double() - y.double()).abs().nan_to_num(
+                float("inf")).max()) if same_shape and x.numel()
+                    else float("inf"))
+            g = optim.leaf_group(k)
+            groups[g] = max(groups.get(g, 0.0), diff)
+        if groups:
+            out[part] = groups
+    files = sorted(k for k in set(a["files"]) | set(b["files"])
+                   if a["files"].get(k) != b["files"].get(k))
+    if files:
+        out["files"] = files
+    other = [k for k in ("active", "c_active") if not torch.equal(a[k], b[k])]
+    other += ["counters"] if a["counters"] != b["counters"] else []
+    if other:
+        out["other"] = other
+    return out

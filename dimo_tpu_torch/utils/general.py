@@ -17,13 +17,16 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
 
 def cudnn_tf32(allow: bool):
     """A context in which cuDNN's convolutions run with TF32 allowed or
-    not, and which restores every global cuDNN flag when it exits. It
-    covers what runs inside it only: a backward that autograd runs later
-    sees the global flags, so a caller whose backward must keep the same
-    precision sets it there too (an `autograd.Function`)."""
+    not, and by deterministic algorithms only (cuDNN's default pick for a
+    convolution's backward may add with atomics, so two runs differed in
+    their last bits), and which restores every global cuDNN flag when it
+    exits. It covers what runs inside it only: a backward that autograd
+    runs later sees the global flags, so a caller whose backward must keep
+    the same precision and order sets it there too (an
+    `autograd.Function`)."""
     b = torch.backends.cudnn
     return b.flags(enabled=b.enabled, benchmark=b.benchmark,
-                   deterministic=b.deterministic, allow_tf32=allow)
+                   deterministic=True, allow_tf32=allow)
 
 
 def resolve_device(device) -> torch.device:

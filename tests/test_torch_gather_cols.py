@@ -98,12 +98,12 @@ def test_cols_bwd_smem_is_the_table_kernels_layout():
 PLANS = [
     ((11, 512, 400_000, 2), ("tables", 261, 1536)),    # the LBS shape
     ((11, 5189, 40_000, 1), ("tables", 125, 320)),     # just under the limit
-    ((11, 5190, 40_000, 1), ("atomics", 0, 0)),        # just over it
+    ((11, 5190, 40_000, 1), ("sorted", 0, 0)),         # just over it
     ((11, 512, 10, 2), ("tables", 1, 32)),             # fewer sites than a batch
     ((11, 512, 40_003, 2), ("tables", 251, 160)),      # S % 4 != 0
     ((11, 1024, 100_000, 2), ("tables", 261, 384)),
     ((1, 1, 5, 2), ("tables", 1, 32)),
-    ((16, 100_000, 200_000, 1), ("atomics", 0, 0)),
+    ((16, 100_000, 200_000, 1), ("sorted", 0, 0)),
 ]
 
 

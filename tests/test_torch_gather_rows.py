@@ -174,12 +174,12 @@ def test_rows_bwd_smem_is_the_table_kernels_layout():
 PLANS = [
     ((512, 11, 400_000, 2), ("tables", 261, 1536)),    # the LBS shape
     ((5189, 11, 40_000, 1), ("tables", 125, 320)),     # just under the limit
-    ((5190, 11, 40_000, 1), ("atomics", 0, 0)),        # just over it
+    ((5190, 11, 40_000, 1), ("sorted", 0, 0)),         # just over it
     ((512, 16, 40_000, 2), ("tables", 250, 160)),
     ((64, 33, 40_000, 2), ("tables", 250, 160)),
     ((1, 11, 40_003, 2), ("tables", 251, 160)),
     ((512, 11, 10, 2), ("tables", 1, 32)),             # fewer sites than a batch
-    ((100_000, 16, 200_000, 1), ("atomics", 0, 0)),
+    ((100_000, 16, 200_000, 1), ("sorted", 0, 0)),
 ]
 
 

@@ -24,8 +24,9 @@
    strip lists' histogram, K1/K3's resident blocks per SM and the
    pixel-entry pairs with alpha > 0 that their bounds count;
    K4 bit-equal to its plain version (which sums in the kernel's fixed
-   order, given the card's plan for the table route) and to itself on a
-   second run, at the LBS shape, on K2's edge cases, a misaligned g view,
+   order, on the grid the shape alone sets) and to itself on a second run,
+   and at the LBS shape to the same call on CPU copies of its inputs, on
+   K2's edge cases, a misaligned g view,
    every index on one column, S = 0, and M = 5,189 and 5,190 at D = 11 so
    both of its routes run (K2 bit-exact there, and the pair through
    autograd at 5,190), with its route, grid, ptxas's registers and
@@ -36,15 +37,20 @@
    single bin, and the flagship's strip lists by both readout routes
    (`tiles.WINDMA` off and on) equal in all four outputs; K5 bit-exact
    and K6 bit-equal to its plain version and to itself on a second run,
-   as K4, at the LBS shape ((512, 11) table, 400,000 sites), on the
+   as K4 (and to the CPU's call) at the LBS shape ((512, 11) table,
+   400,000 sites), on the
    edge cases of `rows_edge_cases` (both of K6's routes) and on a
    (100000, 16) table, with ptxas's registers and the resident blocks per
    SM of K5 and K6's kernels; the strip path's row scatter
-   (`gather_rows_bwd`, K6's sorted route) bit-equal to its plain version
-   and to itself on a second run at the flagship frame's strip lists (K3's
-   slot gradients, 256 x 1,024 x 16 into the (100001, 16) table), with
-   indices -1 and N+1 among them, every slot on one row and no slot,
-   timed beside `zeros + index_add_`; K8
+   (`gather_rows_bwd` over the slots below the strips' counts, its chunked
+   route) bit-equal to its plain version, to the CPU's call on copies of
+   its inputs, to itself on a second run and to the all-slot route at the
+   flagship frame's strip lists (K3's slot gradients, 256 x 1,024 x 16
+   into the (100001, 16) table), with indices -1 and N+1 inside the
+   counts, every slot live and on one row, counts 0 and at the capacity,
+   a spatial rank's strips and no slot, timed beside `zeros +
+   index_add_` and in turns with the sorted route it replaces, split by
+   kernel; K8
    7-channel bit-exact and its 4- and 3-channel variants bit-equal to
    their plain versions and to the 7-channel's first planes, K9 per slab
    slot at 1e-4 of each lane's max |grad|, zero past each count and on
@@ -227,10 +233,13 @@
 
 Development runs that print and fail nothing, run alone after the build:
 `--phase determinism` (phase 6's and 6b's step spread, LPIPS's and SSIM's
-input gradients twice, phase 7b's twins) and `--phase timing` (K4, K6
-and the row scatter's ms, the s2 step's ms LPIPS off and on). Both call
-only entry points that older trees of the port have too, so the same
-script copied into an older checkout measures that tree.
+input gradients twice, phase 7b's twins), `--phase timing` (K4, K6 and
+the row scatter's ms, the s2 step's ms LPIPS off and on) and `--phase
+parts` (K4, K6 and the row scatter on the card against the CPU's call,
+the row scatter's list lengths and its split by kernel, the sorted
+route's parts). They call only entry points that older trees of the port
+have too, so the same script copied into an older checkout measures that
+tree.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -240,6 +249,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -539,8 +549,8 @@ def k2_edge_cases(dev, table_t, nn_idx) -> list[str]:
 
 
 def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
-    """K4 bit-equal to its plain version (summed in the kernel's order,
-    given the card's plan) and to itself on a second run, beyond the LBS
+    """K4 bit-equal to its plain version (summed in the kernel's order, on
+    the grid the shape sets) and to itself on a second run, beyond the LBS
     shape: K2's cases (a ragged last block, S % 4 != 0, an
     idx view one element off 16-byte alignment, a transposed idx, indices
     -1 and M, M = 1,024), a g view one element off 16-byte alignment,
@@ -552,7 +562,6 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
     import torch
     from dimo_tpu_torch.ops import smallgather as sg
     d, m = table_t.shape
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(19)
 
     def rand_idx(mm, shape, lo=0, hi=None):
@@ -560,11 +569,7 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
                              generator=gen, dtype=torch.int32).to(dev)
 
     def check(got, g, idx, mm, name, again=None):
-        route, blocks, per = sg.cols_bwd_plan(
-            d, mm, idx.numel(), lambda smem: sg.cols_occupancy(dev, smem)[0],
-            sms)
-        ref = sg.gather_small_cols_bwd_plain(
-            g, idx, mm, (blocks, per) if route == "tables" else None)
+        ref = sg.gather_small_cols_bwd_plain(g, idx, mm)
         torch.cuda.synchronize()
         if got.shape != (d, mm) or not torch.equal(got, ref) or (
                 again is not None and not torch.equal(got, again)):
@@ -612,9 +617,7 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
             got = sg.gather_small_cols(tab, idx)
             if not torch.equal(got, sg.gather_small_cols_plain(tab, idx)):
                 fail(f"K2 disagrees with its plain version ({name})")
-        route = sg.cols_bwd_plan(
-            d, mm, idx.numel(), lambda smem: sg.cols_occupancy(dev, smem)[0],
-            sms)[0]
+        route = sg.cols_bwd_plan(d, mm, idx.numel())[0]
         names.append(f"{name} [K4 {route}]")
     # the large table through autograd: K2 forward, K4 backward
     tab = torch.randn((d, 5190), generator=gen).to(dev).requires_grad_(True)
@@ -633,7 +636,8 @@ def k4_edge_cases(dev, table_t, nn_idx) -> list[str]:
 
 def rows_edge_cases(dev) -> list[str]:
     """K5 bit-exact against its plain version, and K6 bit-equal to its
-    plain version (summed in the kernel's order, given the card's plan)
+    plain version (summed in the kernel's order, on the grid the shape
+    sets)
     and to itself on a second run, beyond the LBS shape: S % 4 != 0, idx
     and g as views one element off 16-byte alignment, D in {1, 3, 4, 11,
     16, 33}, M = 1, M x D just under and just over K6's shared-memory
@@ -643,7 +647,6 @@ def rows_edge_cases(dev) -> list[str]:
     import torch
     from dimo_tpu_torch.ops import smallgather as sg
     gen = torch.Generator().manual_seed(18)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def rand_idx(m, s, lo=0, hi=None):
         return torch.randint(lo, m if hi is None else hi, (s,), generator=gen,
@@ -689,13 +692,10 @@ def rows_edge_cases(dev) -> list[str]:
         if got.shape != ref.shape or not torch.equal(got, ref):
             fail(f"K5 disagrees with its plain version ({name}): max |err| "
                  f"{float((got - ref).abs().max()) if got.numel() else 0}")
-        route, blocks, per = sg.rows_bwd_plan(
-            m, d, idx.shape[0], lambda smem: sg.rows_occupancy(dev, smem)[1],
-            sms)
+        route = sg.rows_bwd_plan(m, d, idx.shape[0])[0]
         got = sg.gather_small_bwd(g_d, idx_d, m)
         again = sg.gather_small_bwd(g_d, idx_d, m)
-        ref = sg.gather_small_bwd_plain(
-            g_d, idx_d, m, (blocks, per) if route == "tables" else None)
+        ref = sg.gather_small_bwd_plain(g_d, idx_d, m)
         torch.cuda.synchronize()
         if got.shape != (m, d) or not torch.equal(got, ref) or \
                 not torch.equal(got, again):
@@ -883,7 +883,8 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
     """Phase 2f: K5 and K6 against their plain versions at the LBS shape
     (the (M, 11) table K2 reads, transposed, at the flagship's (4, N) KNN
     indices), K6 twice (bit-equal to its plain version, which sums in its
-    order given the card's plan, and to itself), timed beside the library
+    order on the grid the shape sets, to the same call on CPU copies of
+    its inputs, and to itself), timed beside the library
     calls; ptxas's registers and the resident blocks per SM of K5 and K6's
     kernels (`log`: the smallgather build log); the edge cases; then a
     (100000, 16) table (the sorted route), untimed."""
@@ -897,8 +898,7 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
     smem = sg.rows_bwd_smem(m, d)
     occ = dict(zip(("K5", "K6 block", "K6 combine"),
                    sg.rows_occupancy(dev, smem)))
-    route, blocks, per_block = sg.rows_bwd_plan(
-        m, d, s_sites, lambda b: sg.rows_occupancy(dev, b)[1], sms)
+    route, blocks, per_block = sg.rows_bwd_plan(m, d, s_sites)
     if route != "tables":
         fail(f"K6 takes the {route} route at the LBS shape ({m}, {d})")
     ptx = {k: ptxas_kernel(log, n) for k, n in (
@@ -910,8 +910,9 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
         print(f"  {k}: ptxas {v}" + (f"; {occ[k]} resident blocks per SM"
                                      if k in occ else ""))
     print(f"K6 table route at ({m}, {d}): {smem} bytes of shared memory a "
-          f"block, {blocks} blocks of {per_block} sites, scratch "
-          f"{blocks * smem} bytes")
+          f"block, {blocks} blocks of {per_block} sites (the shape's grid; "
+          f"{blocks / (sms * occ['K6 block']):.2f} waves on this card's "
+          f"{sms} SMs), scratch {blocks * smem} bytes")
     got = sg.gather_small(table, nn_idx)
     ref = sg.gather_small_plain(table, nn_idx)
     torch.cuda.synchronize()
@@ -922,16 +923,19 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
                      generator=torch.Generator().manual_seed(14)).to(dev)
     got = sg.gather_small_bwd(g6, nn_idx, m)
     again = sg.gather_small_bwd(g6, nn_idx, m)
-    ref = sg.gather_small_bwd_plain(g6, nn_idx, m, (blocks, per_block))
+    ref = sg.gather_small_bwd_plain(g6, nn_idx, m)
+    host = sg.gather_small_bwd(g6.cpu(), nn_idx.cpu(), m)
     torch.cuda.synchronize()
     k6_err = float((got - ref).abs().max())
     identical = torch.equal(got, again)
-    if not (torch.equal(got, ref) and identical):
+    as_cpu = torch.equal(got.cpu(), host)
+    if not (torch.equal(got, ref) and identical and as_cpu):
         fail(f"K6 at the LBS shape: equal to its plain version "
-             f"{torch.equal(got, ref)} (max |err| {k6_err}), the same bits "
-             f"on a second run {identical}")
+             f"{torch.equal(got, ref)} (max |err| {k6_err}), to the CPU's "
+             f"{as_cpu}, the same bits on a second run {identical}")
     print("K6 at the LBS shape: bit-equal to its plain version (the same "
-          "order) and bit-identical on a second run")
+          "order), to the same call on CPU copies of its inputs, and to a "
+          "second run")
     edge = rows_edge_cases(dev)
     print("K5 (bit-exact) and K6 (bit-equal to its plain version, and on a "
           "second run) also on: " + "; ".join(edge))
@@ -985,6 +989,7 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
             "k6": dict(err=k6_err, ms=k6_ms, plain_ms=k6_plain, lib_ms=k6_lib,
                        graph_ms=k6_graph, lib_graph_ms=k6_lib_graph,
                        bytes=nbytes, k6_route=route, bit_identical=identical,
+                       bit_equal_to_cpu=as_cpu,
                        ptxas=[ptx["K6 block"], ptx["K6 combine"],
                               ptx["K6 sorted tiles"], ptx["K6 sorted runs"]],
                        blocks_per_sm=[occ["K6 block"], occ["K6 combine"]],
@@ -992,68 +997,107 @@ def rows_gather_phase(dev, table_t, nn_idx, log: str) -> dict:
 
 
 def row_scatter_phase(dev, table, lists, tfin, gout, log: str) -> dict:
-    """Phase 2h: the strip path's row scatter (`gather_rows_bwd`, the
-    sorted route's kernels) at the shape the main path gives it: K3's
-    per-slot row gradients of the flagship frame (256 strips x 1,024 slots
-    x 16 floats) into the (N+1, 16) coefficient table, N = 100,000.
-    Bit-equal to its plain version, which sums in the same order, and to
-    itself on a second run; also with indices -1 and N+1 among the slots,
-    with every slot on one row, and with no slot. Timed beside `zeros +
-    index_add_`, the design it replaces. ptxas's registers."""
+    """Phase 2h: the strip path's row scatter (`gather_rows_bwd` with the
+    strips' counts, its chunked route) at the shape the main path gives
+    it: K3's per-slot row gradients of the flagship frame (256 strips x
+    1,024 slots x 16 floats) into the (N+1, 16) coefficient table, N =
+    100,000. Bit-equal to its plain version, to the same call on CPU
+    copies of its inputs, to itself on a second run and to the all-slot
+    route (no counts: K3 gives 0 past a count); also with indices -1 and
+    N+1 inside the counts, every slot live and on one row (a run of
+    262,144), every count 0, every count at the capacity, the counts of
+    the strips the first of two spatial ranks owns, and no slot. Times it
+    in a loop and in a CUDA graph beside `zeros + index_add_`, splits it by
+    kernel (the profiler), and times it in turns with the design it
+    replaces (the sorted route over every slot, `smallgather.
+    scatter_sorted`). ptxas's registers."""
     import torch
     from dimo_tpu_torch.ops import smallgather as sg
     from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
     from dimo_tpu_torch.ops.rasterizer import gather as rg
+    from dimo_tpu_torch.ops.rasterizer import strips
     m = table.shape[0]
-    idx = lists.idx
-    dslot = cs.composite_strips_bwd(table, idx, lists.count, tfin, gout)
-    flat = idx.reshape(-1)
-    s_slots = flat.numel()
+    idx, count = lists.idx, lists.count
+    dslot = cs.composite_strips_bwd(table, idx, count, tfin, gout)
+    cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(21)
 
-    def check(g, ix, name):
-        got = rg.gather_rows_bwd(g, ix, m)
-        again = rg.gather_rows_bwd(g, ix, m)
-        ref = sg.scatter_sorted_plain(g.reshape(-1, 16),
-                                      ix.reshape(-1).long(), m)
+    def check(g, ix, cnt, name):
+        got = rg.gather_rows_bwd(g, ix, m, cnt)
+        again = rg.gather_rows_bwd(g, ix, m, cnt)
+        ref = rg.gather_rows_bwd_plain(g, ix, m, cnt)
+        host = rg.gather_rows_bwd(g.to(cpu), ix.to(cpu), m,
+                                  None if cnt is None else cnt.to(cpu))
         torch.cuda.synchronize()
-        if not (torch.equal(got, ref) and torch.equal(got, again)):
-            fail(f"the row scatter disagrees with its plain version or "
-                 f"itself ({name}): max |err| "
+        same = {"plain": torch.equal(got, ref), "second run":
+                torch.equal(got, again), "CPU": torch.equal(got.cpu(), host)}
+        if not all(same.values()):
+            fail(f"the row scatter ({name}): bit-equal {same}; max |err| "
                  f"{float((got - ref).abs().max())}")
+        return got
 
-    check(dslot, idx, "the flagship frame")
+    live = check(dslot, idx, count, "the flagship frame")
+    every = check(dslot, idx, None, "the flagship frame, every slot")
+    if not torch.equal(live, every):
+        fail("the row scatter over the live slots differs from the all-slot "
+             f"route: max |diff| {float((live - every).abs().max())}")
     bad = idx.clone()
     bad[:, :3] = -1
     bad[:, 3:5] = m
     noise = torch.randn(dslot.shape, generator=gen).to(dev)
-    check(noise, bad, "indices -1 and N+1")
-    check(noise, torch.full_like(idx, 7), "every slot on row 7")
-    check(noise[:, :0], idx[:, :0], "no slot")
-    ptx = {k: ptxas_kernel(log, n) for k, n in (
-        ("tiles", "segment_tiles_kernelILb0"),
-        ("runs", "segment_runs_kernelILb0"))}
-    dummy = int((flat == m - 1).sum())
-    fn = lambda: rg.gather_rows_bwd(dslot, idx, m)            # noqa: E731
+    full = torch.full_like(count, idx.shape[1])
+    owned = strips.strip_owners(count, idx.shape[1], 2) == 0
+    for name, g, ix, cnt in (
+            ("indices -1 and N+1", noise, bad, count),
+            ("every slot live and on row 7", noise, torch.full_like(idx, 7),
+             full),
+            ("every count 0", noise, idx, torch.zeros_like(count)),
+            ("every count at the capacity", noise, idx, full),
+            ("the strips of spatial rank 0 of 2", dslot, idx,
+             torch.where(owned, count, torch.zeros_like(count))),
+            ("no slot", noise[:, :0], idx[:, :0], torch.zeros_like(count))):
+        check(g, ix, cnt, name)
+    ptx = {k: ptxas_kernel(log, k) for k in (
+        "chunk_runs_kernel", "row_starts_kernel", "run_sums_kernel",
+        "sum_rows_kernel")}
+    n_live = int(torch.clamp(count, 0, idx.shape[1]).sum())
+    slots = idx.numel()
+    fn = lambda: rg.gather_rows_bwd(dslot, idx, m, count)     # noqa: E731
     g2 = dslot.reshape(-1, 16)
-    flat_l = flat.long()
+    flat_l = idx.reshape(-1).long()
+    flat32 = idx.reshape(-1).to(torch.int32).contiguous()
+    old = lambda: sg.scatter_sorted(g2, flat32, m, 16)         # noqa: E731
     lib = lambda: torch.zeros((m, 16), device=dev).index_add_(  # noqa: E731
         0, flat_l, g2)
+    turns = [graph_ms(f, 50) for f in (fn, old, old, fn)]
     out = {"ms": cuda_ms(fn, 50), "graph_ms": graph_ms(fn, 50),
            "lib_ms": cuda_ms(lib, 50), "lib_graph_ms": graph_ms(lib, 50),
-           "plain_ms": cuda_ms(
-               lambda: sg.scatter_sorted_plain(g2, flat_l, m), 2, warmup=1),
-           "bytes": s_slots * 4 + s_slots * 16 * 4 + m * 16 * 4,
-           "err": 0.0, "ptxas": [ptx["tiles"], ptx["runs"]],
-           "slots": s_slots, "dummy_slots": dummy}
-    print(f"row scatter ({tuple(dslot.shape)} -> ({m}, 16); {dummy} of "
-          f"{s_slots} slots on the dummy row): bit-equal to its plain "
-          f"version and on a second run, also with indices -1 and N+1, every "
-          f"slot on one row, no slot; {out['ms']:.4f} ms (plain "
-          f"{out['plain_ms']:.2f}, zeros + index_add_ {out['lib_ms']:.4f}); "
-          f"in a CUDA graph {out['graph_ms']:.5f} ms (zeros + index_add_ "
-          f"{out['lib_graph_ms']:.5f}); ptxas: tiles {ptx['tiles']}; runs "
-          f"{ptx['runs']}")
+           "plain_ms": cuda_ms(lambda: rg.gather_rows_bwd_plain(
+               dslot, idx, m, count), 2, warmup=1),
+           "turns_graph_ms": {"chunked": [turns[0], turns[3]],
+                              "sorted over every slot": turns[1:3]},
+           "split_us": kernel_split(fn, 20, os.path.join(
+               "build", "profile_row_scatter")),
+           # the bytes this frame's data needs (the live slots' index and
+           # 16 floats in, a row out), and those of every slot
+           "bytes": n_live * (4 + 64) + m * 64,
+           "bytes_all_slots": slots * (4 + 64) + m * 64,
+           "err": 0.0, "ptxas": list(ptx.values()), "slots": slots,
+           "live_slots": n_live}
+    print(f"row scatter ({tuple(dslot.shape)} -> ({m}, 16); {n_live} of "
+          f"{slots} slots live): bit-equal to its plain version, to the CPU's "
+          f"call, on a second run and to the all-slot route, also with "
+          f"indices -1 and N+1, every slot on one row, counts 0 and at the "
+          f"capacity, a spatial rank's strips and no slot; {out['ms']:.4f} "
+          f"ms (plain {out['plain_ms']:.2f}, zeros + index_add_ "
+          f"{out['lib_ms']:.4f}); in a CUDA graph {out['graph_ms']:.5f} ms "
+          f"(zeros + index_add_ {out['lib_graph_ms']:.5f}); in turns in a "
+          f"graph, chunked / sorted over every slot / sorted / chunked: "
+          + " / ".join(f"{t:.5f}" for t in turns) + " ms")
+    print("row scatter by kernel (us a call, profiler): "
+          + json.dumps(out["split_us"]))
+    for k, v in ptx.items():
+        print(f"  row scatter {k}: ptxas {v}")
     return out
 
 
@@ -2129,37 +2173,21 @@ def determinism_probe(dev) -> None:
     print_twin(tw)
 
 
-def scatter_timing(dev) -> dict:
-    """`--phase timing`, a development run: the graph and loop ms of K4
-    and K6 at the LBS shape (the flagship's KNN indices), of the row
-    scatter at the flagship frame's strip lists (K3's slot gradients of a
-    seeded cotangent), LPIPS's forward and backward of 16 renders at 512^2
-    in calls of 4 and of 16 (CUDA events), and the s2 step's ms (phase
-    6's shape, LPIPS off and on; one warm-up, then TIMING_STEPS each,
-    host clock). It calls
-    only entry points that older trees of the port have too, so a checkout
-    of the commit before the fixed-order scatters, with this script copied
-    in, gives the atomic designs' times to put beside these (runs in
-    turns, each its own process)."""
+def flagship_frame_slots(dev) -> dict:
+    """The flagship scene and one frame's strip lists at 512^2, capacity
+    1024, with K3's slot gradients of a seeded cotangent: what the row
+    scatter gets on the main path. Keys: cfg, params, aux, nn_idx (the
+    KNN indices K4 takes), m (control points), lists, table, dslot."""
     import torch
-    from dimo_tpu_torch.models.lpips import random_init_lpips
     from dimo_tpu_torch.models.renderer import find_knn
-    from dimo_tpu_torch.ops import smallgather as sg
     from dimo_tpu_torch.ops.rasterizer import composite_strips as cs
     from dimo_tpu_torch.ops.rasterizer import projection, strips
-    from dimo_tpu_torch.ops.rasterizer import gather as rg
     from dimo_tpu_torch.ops.rasterizer.api import camera_tensors
     from dimo_tpu_torch.models import deform, gaussians as G
     from dimo_tpu_torch.scenes import flagship_scene
-    from dimo_tpu_torch.train.step import (LossConfig, init_state,
-                                           make_train_step)
     cfg, params, aux, cam = flagship_scene(device=dev)
     knn = find_knn(params, aux)
-    nn_idx = knn[1].contiguous()
-    m = params.c_xyz.shape[0]
     gen = torch.Generator().manual_seed(12)
-    g4 = torch.randn((11,) + tuple(nn_idx.shape), generator=gen).to(dev)
-    g6 = torch.randn(tuple(nn_idx.shape) + (11,), generator=gen).to(dev)
     with torch.no_grad():
         lat = G.sample_latent(params, 1)
         d_xyz, d_rot = params.timenet(params.c_xyz, 0.0, lat)
@@ -2180,10 +2208,176 @@ def scatter_timing(dev) -> dict:
         gout = torch.randn(out.shape, generator=gen).to(dev)
         dslot = cs.composite_strips_bwd(table, lists.idx, lists.count,
                                         out[cs.OUT_CH], gout)
-    rows = table.shape[0]
+    return dict(cfg=cfg, params=params, aux=aux, nn_idx=knn[1].contiguous(),
+                m=params.c_xyz.shape[0], lists=lists, table=table,
+                dslot=dslot)
+
+
+def row_scatter_call(f: dict):
+    """The row scatter as the strip path's backward calls it, on trees
+    whose `gather_rows_bwd` takes the strips' counts and on older ones
+    that do not."""
+    import inspect
+    from dimo_tpu_torch.ops.rasterizer import gather as rg
+    lists, dslot, rows = f["lists"], f["dslot"], f["table"].shape[0]
+    if "count" in inspect.signature(rg.gather_rows_bwd).parameters:
+        return lambda: rg.gather_rows_bwd(dslot, lists.idx, rows,
+                                          count=lists.count)
+    return lambda: rg.gather_rows_bwd(dslot, lists.idx, rows)
+
+
+def kernel_split(fn, calls: int, logdir: str) -> dict:
+    """Device microseconds a call of fn, by kernel (and memset) name, from
+    a `torch.profiler` trace of `calls` calls after a warm-up; a name cut
+    to its last identifier before its template or argument list."""
+    import torch
+    from dimo_tpu_torch.utils import diagnostics
+    fn()
+    torch.cuda.synchronize()
+    with diagnostics.profile_trace(logdir):
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, diagnostics.TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset"):
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name.removeprefix("void "))[0]
+            name = name.strip().split("::")[-1]
+            out[name] = out.get(name, 0.0) + float(e["dur"]) / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def sorted_route_parts(dev, g2, flat, m: int, logdir: str) -> dict:
+    """The sorted route of `smallgather.scatter_sorted` (the strip path's
+    row scatter until it took its own design) on (S, D) values at int32
+    indices: its parts each in a CUDA graph (the output's torch.zeros,
+    the stable torch.sort, the two passes of the segment sum) and the
+    whole, with the profiler's split of the two passes."""
+    import torch
+    from dimo_tpu_torch import build
+    from dimo_tpu_torch.ops import smallgather as sg
+    s, d = g2.shape
+    keys, order = torch.sort(flat, stable=True)
+    tiles = -(-s // sg.SEG_TILE)
+    head = torch.empty((tiles, d), dtype=torch.float32, device=dev)
+    tail = torch.empty((tiles, d), dtype=torch.float32, device=dev)
+    out = torch.zeros((m, d), dtype=torch.float32, device=dev)
+    fn = build.function("smallgather", "gather_small_rows_bwd_sorted",
+                        sg._SORTED_ARGTYPES)
+
+    def passes():
+        build.check(fn(g2.data_ptr(), keys.data_ptr(), order.data_ptr(),
+                       head.data_ptr(), tail.data_ptr(), out.data_ptr(), m,
+                       d, s, torch.cuda.current_stream(dev).cuda_stream),
+                    "gather_small_rows_bwd_sorted")
+
+    return {"zeros_graph_ms": graph_ms(
+                lambda: torch.zeros((m, d), dtype=torch.float32, device=dev),
+                50),
+            "sort_graph_ms": graph_ms(lambda: torch.sort(flat, stable=True),
+                                      50),
+            "passes_graph_ms": graph_ms(passes, 50),
+            "whole_graph_ms": graph_ms(
+                lambda: sg.scatter_sorted(g2, flat, m, d), 50),
+            "passes_split_us": kernel_split(passes, 20, logdir)}
+
+
+def scatter_parts(dev) -> dict:
+    """`--phase parts`, a development run that fails nothing. K4 and K6
+    at the LBS shape (the flagship's KNN indices, seeded cotangents) and
+    the row scatter at the flagship frame: each on the card against the
+    same call on CPU copies of its inputs (the largest |difference| and
+    the entries that are not the same bits). The lengths of the row
+    scatter's per-row slot lists over the live slots (a slot below its
+    strip's count), and whether a strip lists a row twice. The row
+    scatter's graph ms and the profiler's split of it by kernel; the
+    sorted route's parts on the same slots (`sorted_route_parts`). It
+    calls only entry points that older trees of the port have too."""
+    import torch
+    from dimo_tpu_torch.ops import smallgather as sg
+    f = flagship_frame_slots(dev)
+    nn_idx, m, lists, dslot = f["nn_idx"], f["m"], f["lists"], f["dslot"]
+    gen = torch.Generator().manual_seed(12)
+    g4 = torch.randn((11,) + tuple(nn_idx.shape), generator=gen).to(dev)
+    g6 = torch.randn(tuple(nn_idx.shape) + (11,), generator=gen).to(dev)
+    row_fn = row_scatter_call(f)
+    res = {}
+    cpu = torch.device("cpu")
+    f_cpu = dict(f, lists=type(lists)(*(t.to(cpu) if torch.is_tensor(t)
+                                        else t for t in lists)),
+                 dslot=dslot.to(cpu), table=f["table"].to(cpu))
+    for name, card, host in (
+            ("K4", lambda: sg.gather_small_cols_bwd(g4, nn_idx, m),
+             lambda: sg.gather_small_cols_bwd(g4.to(cpu), nn_idx.to(cpu), m)),
+            ("K6", lambda: sg.gather_small_bwd(g6, nn_idx, m),
+             lambda: sg.gather_small_bwd(g6.to(cpu), nn_idx.to(cpu), m)),
+            ("row scatter", row_fn, row_scatter_call(f_cpu))):
+        a, b = card().to(cpu), host()
+        res[f"{name} card vs CPU"] = {
+            "max_abs_diff": float((a - b).abs().max()),
+            "entries_not_bit_equal": int((a.view(torch.int32)
+                                          != b.view(torch.int32)).sum()),
+            "entries": a.numel()}
+        print(f"{name} card vs CPU copies: " + json.dumps(
+            res[f"{name} card vs CPU"]))
+    ns, cap = lists.idx.shape
+    live = torch.arange(cap, device=dev)[None, :] < lists.count[:, None]
+    rows_live = lists.idx[live].long()
+    n = torch.bincount(rows_live, minlength=f["table"].shape[0])
+    per_strip = [int(lists.idx[t, :int(lists.count[t])].unique().numel())
+                 for t in range(ns)]
+    res["lists"] = {
+        "slots": lists.idx.numel(), "live_slots": int(live.sum()),
+        "rows": f["table"].shape[0], "rows_hit": int((n > 0).sum()),
+        "max_slots_a_row": int(n.max()),
+        "rows_over": {k: int((n > k).sum()) for k in (2, 4, 8, 16, 32, 64)},
+        "dead_slots_on_the_last_row": int(
+            (lists.idx[~live] == f["table"].shape[0] - 1).sum()),
+        "strips_listing_a_row_twice": sum(
+            int(u != int(c)) for u, c in zip(per_strip, lists.count))}
+    print("row scatter lists: " + json.dumps(res["lists"]))
+    res["row_scatter_graph_ms"] = graph_ms(row_fn, 50)
+    res["row_scatter_split_us"] = kernel_split(
+        row_fn, 20, os.path.join("build", "parts_row_scatter"))
+    flat = lists.idx.reshape(-1).to(torch.int32).contiguous()
+    res["sorted_route"] = sorted_route_parts(
+        dev, dslot.reshape(-1, 16).contiguous(), flat, f["table"].shape[0],
+        os.path.join("build", "parts_sorted"))
+    print(f"row scatter in a CUDA graph {res['row_scatter_graph_ms']:.5f} ms; "
+          f"by kernel (us a call): " + json.dumps(res["row_scatter_split_us"]))
+    print("the sorted route's parts on the same slots: "
+          + json.dumps(res["sorted_route"]))
+    return res
+
+
+def scatter_timing(dev) -> dict:
+    """`--phase timing`, a development run: the graph and loop ms of K4
+    and K6 at the LBS shape (the flagship's KNN indices), of the row
+    scatter at the flagship frame's strip lists (K3's slot gradients of a
+    seeded cotangent), LPIPS's forward and backward of 16 renders at 512^2
+    in calls of 4 and of 16 (CUDA events), and the s2 step's ms (phase
+    6's shape, LPIPS off and on; one warm-up, then TIMING_STEPS each,
+    host clock). It calls
+    only entry points that older trees of the port have too, so a checkout
+    of an older commit, with this script copied in, gives that tree's
+    times to put beside these (runs in turns, each its own process)."""
+    import torch
+    from dimo_tpu_torch.models.lpips import random_init_lpips
+    from dimo_tpu_torch.ops import smallgather as sg
+    from dimo_tpu_torch.train.step import (LossConfig, init_state,
+                                           make_train_step)
+    f = flagship_frame_slots(dev)
+    cfg, params, aux = f["cfg"], f["params"], f["aux"]
+    nn_idx, m = f["nn_idx"], f["m"]
+    gen = torch.Generator().manual_seed(12)
+    g4 = torch.randn((11,) + tuple(nn_idx.shape), generator=gen).to(dev)
+    g6 = torch.randn(tuple(nn_idx.shape) + (11,), generator=gen).to(dev)
     fns = {"k4": lambda: sg.gather_small_cols_bwd(g4, nn_idx, m),
            "k6": lambda: sg.gather_small_bwd(g6, nn_idx, m),
-           "row_scatter": lambda: rg.gather_rows_bwd(dslot, lists.idx, rows)}
+           "row_scatter": row_scatter_call(f)}
     res = {}
     for name, fn in fns.items():
         res[f"{name}_graph_ms"] = graph_ms(fn, 200 if name != "row_scatter"
@@ -3236,6 +3430,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "timing"]:
         print("timing " + json.dumps(scatter_timing(dev)))
         sys.exit(0)
+    if sys.argv[1:] == ["--phase", "parts"]:
+        print("parts " + json.dumps(scatter_parts(dev)))
+        sys.exit(0)
     if sys.argv[1:] == ["--phase", "determinism"]:
         determinism_probe(dev)
         print(f"chip_smoke --phase determinism: done in "
@@ -3400,8 +3597,7 @@ def main() -> None:
     m = table_t.shape[1]
     smem4 = sg.rows_bwd_smem(m, 11)
     occ4 = dict(zip(("K4 block", "K4 combine"), sg.cols_occupancy(dev, smem4)))
-    route4, grid4, per4 = sg.cols_bwd_plan(
-        11, m, s_sites, lambda b: sg.cols_occupancy(dev, b)[0], sms)
+    route4, grid4, per4 = sg.cols_bwd_plan(11, m, s_sites)
     if route4 != "tables":
         fail(f"K4 takes the {route4} route at the LBS shape (11, {m})")
     ptx4 = {k: ptxas_kernel(logs["smallgather"], n) for k, n in (
@@ -3413,23 +3609,30 @@ def main() -> None:
         print(f"  {k}: ptxas {v}" + (f"; {occ4[k]} resident blocks per SM"
                                      if k in occ4 else ""))
     print(f"K4 {route4} route at (11, {m}): {smem4} bytes of shared memory a "
-          f"block, {grid4} blocks of {per4} sites, scratch {grid4 * smem4} "
-          f"bytes")
+          f"block, {grid4} blocks of {per4} sites (the shape's grid; "
+          f"{grid4 / (sms * occ4['K4 block']):.2f} waves on this card's "
+          f"{sms} SMs), scratch {grid4 * smem4} bytes")
     g4 = torch.randn((11,) + tuple(nn_idx.shape),
                      generator=torch.Generator().manual_seed(12)).to(dev)
     got = sg.gather_small_cols_bwd(g4, nn_idx, m)
     again = sg.gather_small_cols_bwd(g4, nn_idx, m)
-    # the plain version sums in the kernel's order, given the card's plan
-    ref = sg.gather_small_cols_bwd_plain(g4, nn_idx, m, (grid4, per4))
+    # the plain version sums in the kernel's order, on the shape's grid;
+    # so does the CPU's call, on copies of the inputs
+    ref = sg.gather_small_cols_bwd_plain(g4, nn_idx, m)
+    host = sg.gather_small_cols_bwd(g4.cpu(), nn_idx.cpu(), m)
     torch.cuda.synchronize()
     k4_err = float((got - ref).abs().max())
     k4_identical = torch.equal(got, again)
-    if not (torch.equal(got, ref) and k4_identical):
+    k4_as_cpu = torch.equal(got.cpu(), host)
+    if not (torch.equal(got, ref) and k4_identical and k4_as_cpu):
         fail(f"K4 at the LBS shape: equal to its plain version "
-             f"{torch.equal(got, ref)} (max |err| {k4_err}), the same bits "
-             f"on a second run {k4_identical}")
+             f"{torch.equal(got, ref)} (max |err| {k4_err}), to the CPU's "
+             f"{k4_as_cpu} (max |diff| "
+             f"{float((got.cpu() - host).abs().max())}), the same bits on a "
+             f"second run {k4_identical}")
     print("K4 at the LBS shape: bit-equal to its plain version (the same "
-          "order) and bit-identical on a second run")
+          "order), to the same call on CPU copies of its inputs, and to a "
+          "second run")
     k4_cases = k4_edge_cases(dev, table_t, nn_idx)
     print("K4 (bit-equal to its plain version, and on a second run) also "
           "on: " + "; ".join(k4_cases))
@@ -4121,6 +4324,7 @@ def main() -> None:
              "library_ms": k4_lib, "graph_ms": k4_graph,
              "library_graph_ms": k4_lib_graph, "k4_route": route4,
              "grid": grid4, "bit_identical": k4_identical,
+             "bit_equal_to_cpu": k4_as_cpu,
              "ptxas": [ptx4["K4 block"], ptx4["K4 combine"],
                        ptx4["K4 sorted tiles"], ptx4["K4 sorted runs"]],
              "blocks_per_sm": [occ4["K4 block"], occ4["K4 combine"]]},
@@ -4133,10 +4337,14 @@ def main() -> None:
              "launches_trainer": tr_launch["row scatter"],
              "max_abs_err": scat["err"], "ms": scat["ms"],
              "plain_ms": scat["plain_ms"], **bound(0.0, scat["bytes"]),
+             "bound_all_slots_ms": bound(0.0, scat["bytes_all_slots"])[
+                 "bound_ms"],
              "library_ms": scat["lib_ms"], "graph_ms": scat["graph_ms"],
              "library_graph_ms": scat["lib_graph_ms"],
-             "bit_identical": True, "ptxas": scat["ptxas"],
-             "slots": scat["slots"], "dummy_slots": scat["dummy_slots"]},
+             "turns_graph_ms": scat["turns_graph_ms"],
+             "split_us": scat["split_us"], "bit_identical": True,
+             "bit_equal_to_cpu": True, "ptxas": scat["ptxas"],
+             "slots": scat["slots"], "live_slots": scat["live_slots"]},
             {"name": "gather_windows", "route": "cuda",
              "source": "dimo_tpu_torch/csrc/windowdma.cu",
              "replaces": "dimo_tpu/ops/rasterizer/windowdma.py:35",
@@ -4174,8 +4382,8 @@ def main() -> None:
                 "library_ms": r["lib_ms"], "graph_ms": r["graph_ms"],
                 "library_graph_ms": r["lib_graph_ms"], "ptxas": r["ptxas"],
                 "blocks_per_sm": r["blocks_per_sm"],
-                **{k: r[k] for k in ("k6_route", "bit_identical", "grid")
-                   if k in r}}
+                **{k: r[k] for k in ("k6_route", "bit_identical",
+                                     "bit_equal_to_cpu", "grid") if k in r}}
 
     for row in rows:
         if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd",

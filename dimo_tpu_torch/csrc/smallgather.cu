@@ -1,8 +1,9 @@
 // LBS column gather (kernel K2): out[d, s] = table[d, idx[s]] for a small
 // (D, M) table, and its transpose (kernel K4, described above its kernel):
-// dtable[d, idx[s]] += g[d, s]; and the same pair in row layout, K5
-// (out[s, :] = table[idx[s], :]) and K6 (its transpose), each described
-// above its kernel.
+// dtable[d, idx[s]] += g[d, s]; the same pair in row layout, K5
+// (out[s, :] = table[idx[s], :]) and K6 (its transpose); and the strip
+// path's row scatter (above run_sums_kernel). Each is described above its
+// kernel.
 //
 // K2 replaces dimo_tpu/ops/smallgather.py:_fwd_kernel_cols (called through
 // _fwd_call_cols / gather_small_cols), which the TPU ran as a one-hot
@@ -247,10 +248,11 @@ gather_rows_kernel(const float* __restrict__ table,
 // TABLE route whenever the table, padded to float4s, fits a block's
 // dynamic shared memory (kMaxSmem, 223 KB), the SORTED route otherwise.
 //
-// Table route: one wave of 1,024-thread blocks (the occupancy API's
-// resident blocks per SM at the table's shared memory, times the SMs,
-// capped by the 32-site batches: 132 blocks of 3,040 sites at the LBS
-// shape), each over one contiguous range of sites. A block zeroes one copy
+// Table route: a grid set by the shape alone (rows_bwd_plan: at most
+// MAX_BLOCKS = 132 1,024-thread blocks, capped by the 32-site batches; 132
+// blocks of 3,040 sites at the LBS shape, one wave on the H100 SXM's 132
+// SMs at one resident block each), each over one contiguous range of
+// sites. A block zeroes one copy
 // of the table in shared memory and takes its range in chunks of kChunk
 // sites, in order. For a chunk each thread makes one 32-bit key, (index
 // << 10) | the site's place in the chunk, or kNoKey for an index outside
@@ -268,11 +270,11 @@ gather_rows_kernel(const float* __restrict__ table,
 // 0; the output the partials of blocks w, w + 32, w + 64, ... added in
 // order from 0 for w = 0..31, then those 32 sums added in order of w. It
 // depends on the grid (blocks, sites a block), which the wrapper's plan
-// fixes for a card and a shape; the plain version takes the same plan and
-// sums in the same order, so the two agree bit for bit.
+// fixes from (M, D, S) alone, never from the card's SM count or occupancy:
+// the same inputs give the same bits on any card, and the plain version,
+// on the same plan, sums in the same order, so the two agree bit for bit.
 //
-// Sorted route, for larger tables (a (100000, 16) table, and the strip
-// path's row scatter, ops/rasterizer/gather.py): the wrapper sorts the
+// Sorted route, for larger tables (a (100000, 16) table): the wrapper sorts the
 // indices with a stable sort (torch.sort, a helper: keys and the sites in
 // order), and two passes here sum each run of equal keys in that order.
 // segment_tiles_kernel: a thread a (tile of kSegTile sorted positions,
@@ -291,8 +293,7 @@ gather_rows_kernel(const float* __restrict__ table,
 // takes about twice the time of the design it replaces, shared float atomics
 // (a compare-and-swap loop on the H100, ATOMS.CAST.SPIN), at the LBS
 // shape. The sorted route pays for torch.sort and a serial walk of
-// kSegTile positions a thread; at the strip path's row scatter it takes
-// less time than zeros + index_add_, the design it replaces.
+// kSegTile positions a thread.
 // PERF.md, Findings, has the times, measured in turns with the atomic
 // designs on an H100.
 //
@@ -579,7 +580,7 @@ int scatter_tables(const float* g, const int32_t* idx, float* part,
   return (int)cudaGetLastError();
 }
 
-// The sorted route (both passes) of K6, K4 or the row scatter.
+// The sorted route (both passes) of K6 or K4.
 template <bool kCols>
 int scatter_sorted(const float* g, const int32_t* keys, const int64_t* order,
                    float* head, float* tail, float* dtable, int m, int d,
@@ -594,6 +595,238 @@ int scatter_sorted(const float* g, const int32_t* keys, const int64_t* order,
   segment_runs_kernel<kCols><<<(unsigned)blocks, 256, 0, stream>>>(
       keys, head, tail, dtable, m, d, s, tiles);
   return (int)cudaGetLastError();
+}
+
+// The strip path's row scatter (ops/rasterizer/gather.py::gather_rows_bwd):
+// dtable[idx[s], :] += g[s, :] for K3's per-slot gradients of the strip
+// lists, g (T, C, A) at idx (T, C), into the (M, A) coefficient table,
+// over the LIVE slots only: slot (t, c) with c < count[t] when the strips'
+// counts are given (K3 writes 0 past a count; the spatially sharded
+// render zeroes the count of the strips a rank does not own), every slot
+// otherwise (the tile path). It has no TPU kernel: the reference's is
+// XLA's sort + cumsum (dimo_tpu/ops/rasterizer/gather.py:34).
+//
+// What bounds it on the H100: bytes: at the flagship frame (256 strips x
+// 1,024 slots, 161,896 of them live, M = 100,001, A = 16) the live slots'
+// 68 bytes in and 64 bytes a row out, 17.4 MB, 5.2 us at 3.35 TB/s.
+//
+// The ORDER, per entry of the output, which depends on the inputs alone:
+// the row's slots are cut by their flat slot index (t * C + c) into
+// chunks of kChunk = 1,024; each chunk's slots of the row are added one
+// by one in slot order from 0, then the chunks' sums in chunk order from
+// 0. A slot outside its count, and an index outside [0, M), adds nothing.
+// Since the cuts fall at fixed slot indices, dropping a slot whose value
+// is 0 changes no bit (x + 0 = x, and a sum that starts at +0 never
+// reaches -0), so the live route equals the all-slot route on K3's
+// gradients bit for bit.
+//
+// Design. On NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py --phase parts;
+// PERF.md, Findings), the route this replaces (the sorted route above, on
+// every slot) took 0.1225 ms in a CUDA graph: torch.sort 0.054 ms, its two
+// passes 0.060 ms, a serial walk of the 783 tiles of the dummy row's run
+// among them; the lists hold at most 20 live slots a row and no strip
+// lists a row twice. So this route sorts nothing it need not:
+//   chunk_runs_kernel, a 1,024-thread block a chunk: marks each live row
+//     of the chunk in a bitmap, bit k of row r's `words` words for chunk k
+//     (an integer atomicOr: the bits do not depend on the order), and
+//     counts the (row, chunk) runs of each 1,024-row block (shared, then
+//     one global integer atomicAdd a row block). A thread whose bit was
+//     already set found a row listed twice in its chunk; only then does
+//     the block sort the chunk's keys, (row << 10) | place, by the bitonic
+//     network of the table route, so each run of a row is contiguous in
+//     slot order. The chunk's keys, sorted or in slot order, go to `keys`.
+//   row_starts_kernel, a 1,024-thread block a row block: each row's runs
+//     (the popcount of its words), their exclusive sum across rows
+//     (`start`, with the earlier row blocks' counts added first).
+//   run_sums_kernel, a thread a chunk position: the head of each run
+//     finds its place in its row's list, start[row] + (the row's chunks
+//     before this one: a popcount of its bitmap words), and writes there
+//     the run's slot when the run is one slot (at the flagship frame,
+//     every run), else ~(its chunk position), after summing the run's g
+//     in slot order into part at that position. So each row's list holds
+//     its chunk sums in chunk order, and no row of g is copied.
+//   sum_rows_kernel, four threads a row, a float4 each: the row's chunk
+//     sums (rows of g, or of part) added in list order, every row written
+//     once (0 where nothing lands): no zeroing of the output.
+// No float atomic, no host read; the wrapper's scratch is sized by the
+// shapes, so a CUDA graph captures the route. Measured the same way, in
+// turns with the sorted route: 0.0285-0.0289 ms against 0.122-0.129 (the
+// row sums 9 us, the run sums 7.5). Not kept: every run's sum copied into
+// part, then read back in row order, 0.0375 ms (its run sums 19 us).
+constexpr int kRowBlockBits = 10;       // rows a block of row_starts_kernel
+constexpr int kRowBlock = 1 << kRowBlockBits;
+constexpr int kRowLanes = 4;            // threads a row in sum_rows_kernel
+constexpr int kRunVecs = 4;             // float4s a run_sums_kernel pass sums
+static_assert(kRowBlock == kBlockThreads, "a thread a row");
+
+__global__ void __launch_bounds__(kBlockThreads)
+chunk_runs_kernel(const int32_t* __restrict__ idx,
+                  const int32_t* __restrict__ count, int cap, int m,
+                  int64_t s, int words, unsigned* __restrict__ bitmap,
+                  int* __restrict__ row_runs, unsigned* __restrict__ keys_out) {
+  extern __shared__ int blk_runs[];      // runs a row block, this chunk
+  __shared__ unsigned keys[kChunk];
+  const int t = threadIdx.x;
+  const int nblk = (m + kRowBlock - 1) / kRowBlock;
+  for (int i = t; i < nblk; i += kBlockThreads) blk_runs[i] = 0;
+  __syncthreads();
+  const int64_t k = blockIdx.x;
+  const int64_t slot = k * kChunk + t;
+  unsigned key = kNoKey;
+  bool dup = false;
+  if (slot < s && (count == nullptr || slot % cap < __ldg(count + slot / cap))) {
+    const int r = __ldg(idx + slot);
+    if ((unsigned)r < (unsigned)m) {
+      key = ((unsigned)r << kLocalBits) | t;
+      const unsigned bit = 1u << (k & 31);
+      dup = atomicOr(bitmap + (int64_t)r * words + (k >> 5), bit) & bit;
+      if (!dup) atomicAdd(blk_runs + (r >> kRowBlockBits), 1);
+    }
+  }
+  if (__syncthreads_or(dup)) key = sort_chunk(key, keys);
+  keys_out[slot] = key;
+  for (int i = t; i < nblk; i += kBlockThreads)
+    if (blk_runs[i]) atomicAdd(row_runs + i, blk_runs[i]);
+}
+
+// The sum of v over the block's threads (every thread gets it); `red`
+// holds kBlockWarps ints.
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = 0;
+  for (int w = 0; w < kBlockWarps; ++w) v += red[w];
+  return v;
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+row_starts_kernel(const unsigned* __restrict__ bitmap,
+                  const int* __restrict__ row_runs, int words, int m,
+                  int* __restrict__ start) {
+  __shared__ int red[kBlockWarps];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  int before = 0;                        // the runs of earlier row blocks
+  for (int i = t; i < (int)blockIdx.x; i += kBlockThreads)
+    before += row_runs[i];
+  before = block_sum(before, red);
+  const int r = blockIdx.x * kRowBlock + t;
+  int n = 0;
+  if (r < m)
+    for (int w = 0; w < words; ++w)
+      n += __popc(__ldg(bitmap + (int64_t)r * words + w));
+  int incl = n;                          // inclusive scan over the block
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  __syncthreads();
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += red[w];
+  if (r < m) start[r + 1] = before + incl;
+  if (r == 0) start[0] = 0;
+}
+
+// The count of row r's chunks before chunk k: the popcount of its bitmap
+// bits below k, its words read four at a time where they are 16-byte
+// aligned.
+__device__ __forceinline__ int chunks_before(const unsigned* __restrict__ row,
+                                             int words, int64_t k) {
+  const int kw = (int)(k >> 5);
+  const unsigned below = (1u << (k & 31)) - 1;
+  int rank = 0;
+  if (words % 4 == 0) {
+    for (int w = 0; w <= kw; w += 4) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + w));
+      const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (w + i <= kw) rank += __popc(w + i < kw ? u[i] : u[i] & below);
+    }
+    return rank;
+  }
+#pragma unroll 4
+  for (int w = 0; w <= kw; ++w) {
+    const unsigned word = __ldg(row + w);
+    rank += __popc(w < kw ? word : word & below);
+  }
+  return rank;
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+run_sums_kernel(const float* __restrict__ g, const unsigned* __restrict__ keys,
+                const unsigned* __restrict__ bitmap,
+                const int* __restrict__ start, int words, int a4,
+                float* __restrict__ part, int* __restrict__ list) {
+  const int t = threadIdx.x;
+  const int64_t k = blockIdx.x;
+  const int64_t base = k * kChunk;
+  const unsigned key = keys[base + t];
+  if (key == kNoKey) return;
+  const unsigned r = key >> kLocalBits;
+  if (t > 0 && keys[base + t - 1] >> kLocalBits == r) return;  // not a head
+  int end = t + 1;                       // the run: keys[t, end)
+  while (end < kChunk && keys[base + end] >> kLocalBits == r) ++end;
+  const int at = __ldg(start + r) +
+                 chunks_before(bitmap + (int64_t)r * words, words, k);
+  if (end == t + 1) {                    // one slot: its row of g is the sum
+    list[at] = (int)(base + (key & kLocalMask));
+    return;
+  }
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  float4* p4 = reinterpret_cast<float4*>(part) + (base + t) * a4;
+  for (int f0 = 0; f0 < a4; f0 += kRunVecs) {
+    float4 acc[kRunVecs];
+#pragma unroll
+    for (int i = 0; i < kRunVecs; ++i)
+      acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = t; q < end; ++q) {      // the run's slots in slot order
+      const unsigned kq = q == t ? key : keys[base + q];
+      const float4* src = g4 + (base + (kq & kLocalMask)) * a4 + f0;
+#pragma unroll
+      for (int i = 0; i < kRunVecs; ++i) {
+        if (f0 + i < a4) {
+          const float4 v = __ldg(src + i);
+          acc[i].x += v.x;
+          acc[i].y += v.y;
+          acc[i].z += v.z;
+          acc[i].w += v.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRunVecs; ++i)
+      if (f0 + i < a4) p4[f0 + i] = acc[i];
+  }
+  list[at] = ~(int)(base + t);           // the sum lies in part
+}
+
+__global__ void __launch_bounds__(256)
+sum_rows_kernel(const float* __restrict__ g, const float* __restrict__ part,
+                const int* __restrict__ list, const int* __restrict__ start,
+                int m, int a4, float* __restrict__ out) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t r = gid / kRowLanes;
+  if (r >= m) return;
+  const int j0 = __ldg(start + r), j1 = __ldg(start + r + 1);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+  for (int f = (int)(gid % kRowLanes); f < a4; f += kRowLanes) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (int j = j0; j < j1; ++j) {      // the chunks in order
+      const int e = __ldg(list + j);
+      const float4 v = __ldg((e >= 0 ? g4 + (int64_t)e * a4
+                                     : p4 + (int64_t)~e * a4) + f);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    reinterpret_cast<float4*>(out)[r * a4 + f] = acc;
+  }
 }
 
 }  // namespace
@@ -637,7 +870,7 @@ extern "C" int gather_small_rows_bwd_tables(const float* g, const int32_t* idx,
                                per_block, smem, stream);
 }
 
-// K6's sorted route, and the row scatter. g: (s, d) float32; keys: (s,)
+// K6's sorted route. g: (s, d) float32; keys: (s,)
 // int32, the indices sorted stably; order: (s,) int64, the site of each
 // sorted position; head, tail: (ceil(s / kSegTile), d) float32 scratch;
 // dtable: (m, d) float32, zeroed by the caller. Returns cudaError_t.
@@ -707,4 +940,57 @@ extern "C" int gather_small_cols_occupancy(int64_t smem, int* blocks) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks[1], combine_tables_kernel, 32 * kCombineWarps, 0);
   return (int)e;
+}
+
+// The strip path's row scatter (above run_sums_kernel). g: (s, a)
+// float32, 16-byte aligned, a % 4 == 0; idx: (s,) int32; count: (s / cap,)
+// int32, or null for every slot live; marks: (m * words + ceil(m / 1024))
+// int32 scratch, words = ceil(ceil(s / 1024) / 32), zeroed here; keys:
+// (ceil(s / 1024) * 1024,) int32 scratch; start: (m + 1,) int32 scratch;
+// list: (s,) int32 scratch; part: (ceil(s / 1024) * 1024, a) float32
+// scratch; out: (m, a) float32, written whole. s < 2^31 - 1024.
+// Returns cudaError_t.
+extern "C" int gather_rows_bwd_chunked(const float* g, const int32_t* idx,
+                                       const int32_t* count, int cap,
+                                       int32_t* marks, int32_t* keys,
+                                       int32_t* start, int32_t* list,
+                                       float* part, float* out, int m, int a,
+                                       int64_t s, cudaStream_t stream) {
+  if (m <= 0 || a <= 0) return 0;
+  if (a % 4 != 0 || m >= (1 << (32 - kLocalBits)) - 1 || s < 0 ||
+      s > INT32_MAX - kChunk ||
+      (count != nullptr && s > 0 && cap <= 0) ||
+      (reinterpret_cast<uintptr_t>(g) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t chunks = (s + kChunk - 1) / kChunk;
+  const int words = (int)((chunks + 31) / 32);
+  const int nblk = (m + kRowBlock - 1) / kRowBlock;
+  unsigned* bitmap = reinterpret_cast<unsigned*>(marks);
+  int* row_runs = marks + (int64_t)m * words;
+  cudaError_t e = cudaMemsetAsync(
+      marks, 0, ((int64_t)m * words + nblk) * sizeof(int32_t), stream);
+  if (e != cudaSuccess) return (int)e;
+  if (chunks > 0) {
+    chunk_runs_kernel<<<(unsigned)chunks, kBlockThreads,
+                        nblk * sizeof(int), stream>>>(
+        idx, count, cap, m, s, words, bitmap, row_runs,
+        reinterpret_cast<unsigned*>(keys));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  row_starts_kernel<<<nblk, kBlockThreads, 0, stream>>>(bitmap, row_runs,
+                                                        words, m, start);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (chunks > 0) {
+    run_sums_kernel<<<(unsigned)chunks, kBlockThreads, 0, stream>>>(
+        g, reinterpret_cast<const unsigned*>(keys), bitmap, start, words,
+        a / 4, part, list);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t threads = (int64_t)m * kRowLanes;
+  sum_rows_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      g, part, list, start, m, a / 4, out);
+  return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@ list slot's gradient on the home-frame table row: six power
 coefficients (eval-frame moments chained back through the Taylor shift,
 the reference's `_unshift_grad`) and seven channel values; the id lanes
 get 0, and slots past a strip's count are 0. `gather_rows_bwd` adds the
-slots into the (N+1, 16) table gradient.
+slots below each strip's count into the (N+1, 16) table gradient.
 
 On a CUDA tensor the wrappers launch `csrc/composite_strips.cu` (K1
 forward, K3 backward); on a CPU tensor they run `composite_strips_plain`
@@ -368,7 +368,9 @@ class _Composite(torch.autograd.Function):
         table, idx, count, out = ctx.saved_tensors
         dslot = composite_strips_bwd(table, idx, count, out[OUT_CH],
                                      gout.contiguous())
-        return gather_rows_bwd(dslot, idx, table.shape[0]), None, None, None, None
+        # K3 writes 0 past a strip's count: only the live slots are read
+        return (gather_rows_bwd(dslot, idx, table.shape[0], count), None,
+                None, None, None)
 
 
 def composite_strips(table: torch.Tensor, idx: torch.Tensor,

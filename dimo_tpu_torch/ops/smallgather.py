@@ -31,12 +31,14 @@ reference's grid, which the TPU runs in order, does. Each takes one of two
 routes by the table's size alone, by one rule (`rows_bwd_plan`, which
 `cols_bwd_plan` calls): a copy of the table per block in shared memory,
 each chunk of sites sorted by index there and each run of an index summed
-by one thread, the blocks' partial tables then added in a fixed order; or,
-for a table too large for that, a stable sort of the sites by index and a
-segment sum of each run (`scatter_sorted`, which the strip path's row
-scatter, `ops/rasterizer/gather.py`, also runs). The plain versions sum in
-the same orders (the table route's given the card's plan), so on the card
-each kernel equals its plain version bit for bit. The reference runs column
+by one thread, the blocks' partial tables then added in a fixed order, on a
+grid set by the shape alone, so the same inputs give the same bits on any
+card and on the CPU; or, for a table too large for that, a stable sort of
+the sites by index and a segment sum of each run (`scatter_sorted`). The
+plain versions sum in the same orders, so each kernel equals its plain
+version bit for bit. The strip path's row scatter
+(`ops/rasterizer/gather.py`) shares `CHUNK` and `_ordered_sums` with this
+module and has its own route. The reference runs column
 tables above `MAX_M = 1024` through a plain one-hot product
 (`_gather_cols_xla`); K2 reads the table from device memory, so the column
 pair, too, takes any M.
@@ -81,10 +83,16 @@ _TABLES_ARGTYPES = ([ctypes.c_void_p] * 4
 # block less the 4 KB of a chunk's static key array (the kernels'
 # kMaxSmem; a launch refuses a size that differs from its layout). A
 # block's range of sites is whole batches of BATCH, one warp's coalesced
-# load, taken CHUNK sites at a time (kChunk). The sorted route's first
-# pass cuts the sorted sites into tiles of SEG_TILE (kSegTile).
+# load, taken CHUNK sites at a time (kChunk; the row scatter cuts its
+# slots into chunks of as many). The sorted route's first pass cuts the
+# sorted sites into tiles of SEG_TILE (kSegTile).
 SMEM_LIMIT = 232_448 - 4_096
 BATCH = 32
+# The table route's most blocks: the grid an H100 SXM runs at the LBS
+# shape, one 1,024-thread block on each of its 132 SMs. A constant, so
+# that the order of K4's and K6's sums is the same on any card and on the
+# CPU (rows_bwd_plan)
+MAX_BLOCKS = 132
 CHUNK = 1024
 SEG_TILE = 128
 
@@ -155,8 +163,7 @@ def _scatter_cols_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tens
     dev = g.device
     if g2.numel() == 0 or m == 0:
         return torch.zeros((d, m), dtype=torch.float32, device=dev)
-    route, blocks, per_block = cols_bwd_plan(
-        d, m, s, lambda smem: cols_occupancy(dev, smem)[0], _num_sms(dev))
+    route, blocks, per_block = cols_bwd_plan(d, m, s)
     if route == "tables":
         out = _scatter_tables(g2, flat, m, d, blocks, per_block, cols=True)
     else:
@@ -302,15 +309,15 @@ def gather_small_bwd_plain(g: torch.Tensor, idx: torch.Tensor, m: int,
     """Plain version of kernel K6: g (..., D) cotangent at idx (...) ->
     (m, D) float32, dtable[j, :] = sum of g[s, :] over the sites with
     idx[s] == j; indices outside [0, m) add nothing. The kernel's sums in
-    its order: a table that fits shared memory by the table route's, with
-    `plan` = (blocks, sites a block) of the card's `rows_bwd_plan` (None:
-    one block of every site), a larger one by the sorted route's."""
+    its order: a table that fits shared memory by the table route's, on
+    the grid of `rows_bwd_plan` (the card's) unless `plan` = (blocks,
+    sites a block) names another, a larger one by the sorted route's."""
     d = g.shape[-1]
     flat = idx.reshape(-1).long()
     vals = g.reshape(-1, d).float()
     if rows_bwd_smem(m, d) > SMEM_LIMIT:
         return scatter_sorted_plain(vals, flat, m)
-    blocks, per_block = plan or (1, max(flat.shape[0], 1))
+    blocks, per_block = plan or rows_bwd_plan(m, d, flat.shape[0])[1:]
     return _tables_plain(vals, flat, m, blocks, per_block)
 
 
@@ -321,31 +328,28 @@ def rows_bwd_smem(m: int, d: int) -> int:
     return 4 * ((m * d + 3) // 4 * 4)
 
 
-def rows_bwd_plan(m: int, d: int, s: int, blocks_per_sm, num_sms: int
-                  ) -> tuple[str, int, int]:
+def rows_bwd_plan(m: int, d: int, s: int) -> tuple[str, int, int]:
     """K6's route for an (m, d) table and s sites: ("tables", blocks,
     sites per block) when the table fits a block's shared memory, else
     ("sorted", 0, 0). This is the one place of the size rule, K4's too
-    (`cols_bwd_plan`). The table route's grid is one wave,
-    `blocks_per_sm(smem)` (the occupancy API at `rows_bwd_smem` bytes;
-    called only for that route) times `num_sms`, capped by the BATCH-site
-    batches; each block takes a contiguous range of whole batches, no
-    block's range is empty, and the scratch holds blocks x (m x d rounded
-    up to a multiple of 4) floats."""
+    (`cols_bwd_plan`). The table route's grid follows (m, d, s) alone, so
+    its order of summation does too (no SM count or occupancy reaches
+    it): at most MAX_BLOCKS blocks, capped by the BATCH-site batches; each
+    block takes a contiguous range of whole batches, no block's range is
+    empty, and the scratch holds blocks x (m x d rounded up to a multiple
+    of 4) floats."""
     smem = rows_bwd_smem(m, d)
     if smem > SMEM_LIMIT:
         return "sorted", 0, 0
-    batches = -(-s // BATCH)
-    blocks = max(1, min(blocks_per_sm(smem) * num_sms, batches))
-    per = -(-batches // blocks)               # batches a block
-    return "tables", -(-batches // per) if per else 1, per * BATCH
+    batches = max(1, -(-s // BATCH))
+    per = -(-batches // min(MAX_BLOCKS, batches))   # batches a block
+    return "tables", -(-batches // per), per * BATCH
 
 
-def cols_bwd_plan(d: int, m: int, s: int, blocks_per_sm, num_sms: int
-                  ) -> tuple[str, int, int]:
+def cols_bwd_plan(d: int, m: int, s: int) -> tuple[str, int, int]:
     """K4's route, grid and scratch for a (d, m) table and s sites: K6's
     for the (m, d) table of the same size (`rows_bwd_plan`)."""
-    return rows_bwd_plan(m, d, s, blocks_per_sm, num_sms)
+    return rows_bwd_plan(m, d, s)
 
 
 @functools.lru_cache(maxsize=None)
@@ -459,8 +463,7 @@ def _scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor, m: int) -> torch.Tens
     dev = g.device
     if g2.numel() == 0 or m == 0:
         return torch.zeros((m, d), dtype=torch.float32, device=dev)
-    route, blocks, per_block = rows_bwd_plan(
-        m, d, s, lambda smem: rows_occupancy(dev, smem)[1], _num_sms(dev))
+    route, blocks, per_block = rows_bwd_plan(m, d, s)
     if route == "tables":
         out = _scatter_tables(g2, flat, m, d, blocks, per_block, cols=False)
     else:

@@ -16,9 +16,13 @@ the same bits twice, as the reference's does, on the CPU.
   test_torch_composite_bwd.py holds it).
 * The plain versions against numpy float32 loops that follow the kernels'
   code step by step (`csrc/smallgather.cu`: the table route's sorted
-  chunks, runs, block tables and fixed combine; the sorted route's tiles,
-  pieces and the second pass's fold): equal bit for bit, since both sum
-  the same float32 terms in the same order.
+  chunks, runs, block tables and fixed combine, on the grid the card runs,
+  which follows the shape alone; the sorted route's tiles, pieces and the
+  second pass's fold; the row scatter's chunk sums, in chunk order): equal
+  bit for bit, since both sum the same float32 terms in the same order.
+  The row scatter over the live slots of strip lists (`count`) against
+  the same over every slot, when the slots past a count carry K3's zeros:
+  equal bit for bit.
 * Two fresh `Trainer`s with one seed, through densifications, the FPS
   anneal, finish_s1's prune and s1 -> s2: the same parameters, Adam
   moments, step losses and checkpoint bytes.
@@ -247,9 +251,32 @@ def _np_sorted(g, idx, m):
     return out
 
 
+def _np_chunked(g, idx, m, live=None):
+    """chunk_runs_kernel + run_sums_kernel + sum_rows_kernel, step by step:
+    in each chunk of CHUNK flat slots, each row's live slots summed in slot
+    order from 0; then each row's chunk sums added in chunk order from 0."""
+    s, a = g.shape
+    parts = {}
+    for c0 in range(0, s, tsg.CHUNK):
+        sums = {}
+        for q in range(c0, min(s, c0 + tsg.CHUNK)):
+            j = int(idx[q])
+            if (live is None or live[q]) and 0 <= j < m:
+                sums[j] = sums.get(j, np.zeros(a, np.float32)) + g[q]
+        for j, v in sums.items():
+            parts.setdefault(j, []).append(v)
+    out = np.zeros((m, a), np.float32)
+    for j, vs in parts.items():
+        acc = np.zeros(a, np.float32)
+        for v in vs:
+            acc = acc + v
+        out[j] = acc
+    return out
+
+
 # (m, d, sites, indices, plan): the plan is (blocks, sites a block) of
-# the table route, a multiple of 32 as `rows_bwd_plan` makes it; None: one
-# block of every site, the CPU's default
+# the table route, a multiple of 32 as `rows_bwd_plan` makes it; None: the
+# default, `rows_bwd_plan`'s grid, which the card runs
 ORDERED = [(512, 11, 3000, "hot", None),
            (512, 11, 5000, "uniform", (7, 736)),
            (64, 3, 2100, "edges", (40, 64)),
@@ -265,7 +292,7 @@ def test_plain_scatter_is_the_kernels_order_bit_for_bit(m, d, s, kind, plan):
     g = (rng.randn(s, d) * np.exp(rng.randn(s, 1) * 3)).astype(np.float32)
     got = tsg.gather_small_bwd_plain(_t(g), _t(idx), m, plan).numpy()
     if tsg.rows_bwd_smem(m, d) <= tsg.SMEM_LIMIT:
-        blocks, per = plan or (1, s)
+        blocks, per = plan or tsg.rows_bwd_plan(m, d, s)[1:]
         want = _np_tables(g, idx, m, blocks, per)
     else:
         want = _np_sorted(g, idx, m)
@@ -278,12 +305,14 @@ def test_plain_scatter_is_the_kernels_order_bit_for_bit(m, d, s, kind, plan):
 @pytest.mark.parametrize("m,s,kind", [(50, 2000, "hot"), (3000, 2500, "edges"),
                                       (2, 1000, "uniform")])
 def test_row_scatter_is_the_sorted_order_bit_for_bit(m, s, kind):
+    """The row scatter over every slot sums in its kernels' order (the
+    chunk sums of each row, in chunk order), bit for bit."""
     rng = np.random.RandomState(m)
     idx = _indices(rng, m, s, kind)
     g = rng.randn(s, 16).astype(np.float32)
     got = tgather.gather_rows_bwd(_t(g).reshape(4, -1, 16),
                                   _t(idx).reshape(4, -1), m)
-    np.testing.assert_array_equal(_bits(got.numpy()), _bits(_np_sorted(
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(_np_chunked(
         g, idx, m)))
 
 
@@ -299,6 +328,114 @@ def test_the_table_routes_order_is_its_plans():
     assert not torch.equal(a, b)
     np.testing.assert_array_equal(_bits(b.numpy()),
                                   _bits(_np_tables(g, idx, 512, 24, 256)))
+
+
+def test_the_cpus_default_plan_is_the_cards_at_the_lbs_shape():
+    """K4 and K6 at the LBS shape ((11, 512) table, 4 x 100,000 sites): the
+    plain versions' default grid is the one the card runs, 132 blocks of
+    3,040 sites, whatever card it is, and they sum in its order."""
+    assert tsg.rows_bwd_plan(512, 11, 400_000) == ("tables", 132, 3040)
+    assert tsg.cols_bwd_plan(11, 512, 400_000) == ("tables", 132, 3040)
+    rng = np.random.RandomState(400)
+    idx = _indices(rng, 512, 400_000, "hot")
+    g = rng.randn(400_000, 11).astype(np.float32)
+    want = _np_tables(g, idx, 512, 132, 3040)
+    got = tsg.gather_small_bwd(_t(g), _t(idx), 512)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    cols = tsg.gather_small_cols_bwd(_t(g.T.copy()).reshape(11, 4, -1),
+                                     _t(idx).reshape(4, -1), 512)
+    np.testing.assert_array_equal(_bits(cols.numpy().T), _bits(want))
+
+
+def _strip_slots(rng, n_strips, cap, m, counts, dup_rows=False):
+    """Strip lists as the binning makes them: strip t lists count[t]
+    distinct rows of [0, m - 1) (the last row is the padding row), then
+    the padding row to the capacity; K3-shaped gradients, 0 past each
+    count, with some -0.0 among the live ones. `dup_rows`: rows drawn with
+    repeats inside a strip."""
+    idx = np.full((n_strips, cap), m - 1, np.int32)
+    g = np.zeros((n_strips, cap, 16), np.float32)
+    for t, c in enumerate(counts):
+        c = min(c, cap)
+        idx[t, :c] = (rng.randint(0, m - 1, c) if dup_rows
+                      else rng.permutation(m - 1)[:c])
+        g[t, :c] = rng.randn(c, 16) * np.exp(rng.randn(c, 1) * 3)
+        g[t, :c][rng.rand(c, 16) < 0.05] = -0.0
+    return g, idx
+
+
+# (strips, capacity, rows, counts, rows repeated in a strip): the capacity
+# of 1,024 puts one strip in each chunk; 700 and 1,500 cut strips across
+# chunks; counts of 0 and of the capacity
+LIVE = [(6, 1024, 3000, [1024, 0, 517, 3, 1024, 900], False),
+        (5, 700, 1000, [700, 0, 12, 699, 350], False),
+        (3, 1500, 2500, [1500, 1499, 0], True),
+        (4, 64, 50, [0, 0, 0, 0], False)]
+
+
+@pytest.mark.parametrize("n_strips,cap,m,counts,dup", LIVE)
+def test_row_scatter_live_slots_match_the_all_slot_route(n_strips, cap, m,
+                                                         counts, dup):
+    """Over the live slots (`count`) the row scatter gives the bits of the
+    all-slot route on K3-shaped gradients, and both are a numpy loop in
+    the kernels' order, bit for bit."""
+    rng = np.random.RandomState(cap + m)
+    g, idx = _strip_slots(rng, n_strips, cap, m, counts, dup)
+    count = np.array(counts, np.int32)
+    live = (np.arange(cap)[None, :] < count[:, None]).reshape(-1)
+    got = tgather.gather_rows_bwd(_t(g), _t(idx), m, _t(count))
+    every = tgather.gather_rows_bwd(_t(g), _t(idx), m)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(every.numpy()))
+    want = _np_chunked(g.reshape(-1, 16), idx.reshape(-1), m, live)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+# (indices inside the counts, counts): -1 and N+1 among the live slots,
+# every live slot on one row, a count of 0 everywhere, counts at the
+# capacity
+EDGES = [("-1 and N+1", [40, 64, 0]), ("one row", [64, 64, 64]),
+         ("no live slot", [0, 0, 0]), ("every slot live", [64, 64, 64])]
+
+
+@pytest.mark.parametrize("kind,counts", EDGES)
+def test_row_scatter_edge_cases_are_its_order_bit_for_bit(kind, counts):
+    rng = np.random.RandomState(len(kind))
+    m, cap = 30, 64
+    idx = rng.randint(0, m, (3, cap)).astype(np.int32)
+    if kind == "-1 and N+1":
+        idx[:, :5], idx[:, 5:9] = -1, m + 1
+    if kind == "one row":
+        idx[...] = 7
+    g = rng.randn(3, cap, 16).astype(np.float32)
+    count = np.array(counts, np.int32)
+    live = (np.arange(cap)[None, :] < count[:, None]).reshape(-1)
+    got = tgather.gather_rows_bwd(_t(g), _t(idx), m, _t(count))
+    want = _np_chunked(g.reshape(-1, 16), idx.reshape(-1), m, live)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    if kind == "no live slot":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("n_strips,cap,m,counts,dup", LIVE[:3])
+def test_row_scatter_over_live_slots_matches_jax_vjp(n_strips, cap, m,
+                                                     counts, dup):
+    """The reference's `gather_rows` VJP of the same K3-shaped gradients
+    (every slot; zeros past the counts), within the tolerance of
+    test_row_scatter_matches_jax_vjp."""
+    rng = np.random.RandomState(cap + 2 * m)
+    g, idx = _strip_slots(rng, n_strips, cap, m, counts, dup)
+    attrs = rng.randn(m, 16).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jgather.gather_rows(a, jnp.asarray(idx)),
+                     jnp.asarray(attrs))
+    (ref,) = vjp(jnp.asarray(g))
+    got = tgather.gather_rows_bwd(_t(g), _t(idx), m,
+                                  _t(np.array(counts, np.int32)))
+    flat, g2 = idx.reshape(-1), g.reshape(-1, 16).astype(np.float64)
+    exact = np.zeros((m, 16), np.float64)
+    np.add.at(exact, flat, g2)
+    _mass_close(got.numpy(), exact, _rows_mass(g, idx, m), "row scatter")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5 * float(np.abs(g2).sum(0).max()))
 
 
 # --- two trainers, one seed ----------------------------------------------

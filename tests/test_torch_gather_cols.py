@@ -1,6 +1,7 @@
 """The LBS column gather (`gather_small_cols`, kernels K2 and K4 through
 their plain versions) on tables of any width, and K4's size rule, grid
-and scratch (`cols_bwd_plan`, `rows_bwd_smem`), on the CPU.
+and scratch (`cols_bwd_plan`, `rows_bwd_smem`; the grid follows the shape
+alone), on the CPU.
 
 Above `MAX_M = 1024` columns the reference gathers with a plain float32
 one-hot product (`_gather_cols_xla`) and differentiates it with `jax.vjp`;
@@ -11,6 +12,7 @@ the port runs the same kernels at any M. Tolerances:
     sites that land on one column (float32 sums of the same terms in
     another order).
 """
+import inspect
 import re
 from pathlib import Path
 
@@ -94,40 +96,36 @@ def test_cols_bwd_smem_is_the_table_kernels_layout():
     assert "(int64_t)m * d + 3) / 4 * 4" in CSRC.read_text()
 
 
-# (d, m, sites, blocks per SM) -> route, blocks, sites per block, at 132 SMs
+# (d, m, sites) -> route, blocks, sites per block: the grid follows the
+# shape alone (at most MAX_BLOCKS = 132 blocks)
 PLANS = [
-    ((11, 512, 400_000, 2), ("tables", 261, 1536)),    # the LBS shape
-    ((11, 5189, 40_000, 1), ("tables", 125, 320)),     # just under the limit
-    ((11, 5190, 40_000, 1), ("sorted", 0, 0)),         # just over it
-    ((11, 512, 10, 2), ("tables", 1, 32)),             # fewer sites than a batch
-    ((11, 512, 40_003, 2), ("tables", 251, 160)),      # S % 4 != 0
-    ((11, 1024, 100_000, 2), ("tables", 261, 384)),
-    ((1, 1, 5, 2), ("tables", 1, 32)),
-    ((16, 100_000, 200_000, 1), ("sorted", 0, 0)),
+    ((11, 512, 400_000), ("tables", 132, 3040)),     # the LBS shape
+    ((11, 5189, 40_000), ("tables", 125, 320)),      # just under the limit
+    ((11, 5190, 40_000), ("sorted", 0, 0)),          # just over it
+    ((11, 512, 10), ("tables", 1, 32)),              # fewer sites than a batch
+    ((11, 512, 40_003), ("tables", 126, 320)),       # S % 4 != 0
+    ((11, 1024, 100_000), ("tables", 131, 768)),
+    ((1, 1, 5), ("tables", 1, 32)),
+    ((16, 100_000, 200_000), ("sorted", 0, 0)),
 ]
 
 
 @pytest.mark.parametrize("args,want", PLANS)
 def test_cols_bwd_plan_routes_grid_and_scratch(args, want):
-    d, m, s, per_sm = args
-    asked = []
-
-    def occupancy(smem):
-        asked.append(smem)
-        return per_sm
-
-    route, blocks, per_block = tsg.cols_bwd_plan(d, m, s, occupancy, 132)
+    d, m, s = args
+    # the plan takes the shape and nothing of the card
+    assert list(inspect.signature(tsg.cols_bwd_plan).parameters) == [
+        "d", "m", "s"]
+    route, blocks, per_block = tsg.cols_bwd_plan(d, m, s)
     assert (route, blocks, per_block) == want
     if route == "tables":
-        # one wave; every site in exactly one block's range of whole
-        # batches, and no range empty; K6's plan for the same table
-        assert asked == [tsg.rows_bwd_smem(m, d)]
-        assert blocks <= per_sm * 132 and per_block % tsg.BATCH == 0
-        assert tsg.rows_bwd_plan(m, d, s, occupancy, 132) == want
+        # at most MAX_BLOCKS; every site in exactly one block's range of
+        # whole batches, and no range empty; K6's plan for the same table
+        assert blocks <= tsg.MAX_BLOCKS and per_block % tsg.BATCH == 0
+        assert tsg.rows_bwd_plan(m, d, s) == want
         assert blocks * per_block >= s > (blocks - 1) * per_block
         # the scratch: one padded table a block
         assert blocks * tsg.rows_bwd_smem(m, d) // 4 == blocks * (
             (d * m + 3) // 4 * 4)
     else:
-        assert asked == []           # the occupancy is asked only for tables
         assert tsg.rows_bwd_smem(m, d) > tsg.SMEM_LIMIT

@@ -1,5 +1,7 @@
 """Parity of the port's row-layout small gather (`gather_small`, kernels
-K5 and K6 through their plain versions) with the JAX package, on the CPU.
+K5 and K6 through their plain versions) with the JAX package, and K6's
+size rule and grid (`rows_bwd_plan`, which follows the shape alone), on
+the CPU.
 
 The JAX side runs its Pallas kernels in interpret mode (forced by
 tests/conftest.py) for M <= 1024 and its plain one-hot product above.
@@ -13,6 +15,8 @@ Tolerances:
     that scale (a one-hot product against an index_add: float32 sum
     order).
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,35 +174,32 @@ def test_rows_bwd_smem_is_the_table_kernels_layout():
     assert tsg.rows_bwd_smem(5189, 11) <= tsg.SMEM_LIMIT < tsg.rows_bwd_smem(5190, 11)
 
 
-# (m, d, sites, blocks per SM) -> route, blocks, sites per block, at 132 SMs
+# (m, d, sites) -> route, blocks, sites per block: the grid follows the
+# shape alone (at most MAX_BLOCKS = 132 blocks)
 PLANS = [
-    ((512, 11, 400_000, 2), ("tables", 261, 1536)),    # the LBS shape
-    ((5189, 11, 40_000, 1), ("tables", 125, 320)),     # just under the limit
-    ((5190, 11, 40_000, 1), ("sorted", 0, 0)),         # just over it
-    ((512, 16, 40_000, 2), ("tables", 250, 160)),
-    ((64, 33, 40_000, 2), ("tables", 250, 160)),
-    ((1, 11, 40_003, 2), ("tables", 251, 160)),
-    ((512, 11, 10, 2), ("tables", 1, 32)),             # fewer sites than a batch
-    ((100_000, 16, 200_000, 1), ("sorted", 0, 0)),
+    ((512, 11, 400_000), ("tables", 132, 3040)),     # the LBS shape
+    ((5189, 11, 40_000), ("tables", 125, 320)),      # just under the limit
+    ((5190, 11, 40_000), ("sorted", 0, 0)),          # just over it
+    ((512, 16, 40_000), ("tables", 125, 320)),
+    ((64, 33, 40_000), ("tables", 125, 320)),
+    ((1, 11, 40_003), ("tables", 126, 320)),
+    ((512, 11, 10), ("tables", 1, 32)),              # fewer sites than a batch
+    ((100_000, 16, 200_000), ("sorted", 0, 0)),
 ]
 
 
 @pytest.mark.parametrize("args,want", PLANS)
 def test_rows_bwd_plan_routes_grid_and_scratch(args, want):
-    m, d, s, per_sm = args
-    asked = []
-
-    def occupancy(smem):
-        asked.append(smem)
-        return per_sm
-
-    route, blocks, per_block = tsg.rows_bwd_plan(m, d, s, occupancy, 132)
+    m, d, s = args
+    # the plan takes the shape and nothing of the card
+    assert list(inspect.signature(tsg.rows_bwd_plan).parameters) == [
+        "m", "d", "s"]
+    route, blocks, per_block = tsg.rows_bwd_plan(m, d, s)
     assert (route, blocks, per_block) == want
     if route == "tables":
-        # one wave; every site in exactly one block's range of whole
-        # batches, and no range empty
-        assert asked == [tsg.rows_bwd_smem(m, d)]
-        assert blocks <= per_sm * 132 and per_block % tsg.BATCH == 0
+        # at most MAX_BLOCKS; every site in exactly one block's range of
+        # whole batches, and no range empty
+        assert blocks <= tsg.MAX_BLOCKS and per_block % tsg.BATCH == 0
         assert blocks * per_block >= s > (blocks - 1) * per_block
     else:
-        assert asked == []           # the occupancy is asked only for tables
+        assert tsg.rows_bwd_smem(m, d) > tsg.SMEM_LIMIT

@@ -221,11 +221,40 @@
    true, `videos_error` None).
    `python3 chip_smoke.py --phase 10` builds and runs this phase alone
    (a development run: no result line).
-11. Runs `bench_torch.py`'s functions on a fresh flagship scene with
+11. Holds the card against the JAX package at full width ("reference";
+   `dimo_tpu_torch/reference_check.py` against `tests/golden/
+   torch_reference_{frame,vjp,step}.npz`, which `tests/
+   make_torch_reference.py` made with `dimo_tpu` on the CPU; every input
+   rebuilt here from numpy seeds, the files' scene hash checked): the
+   flagship frame (100,000 Gaussians, 512 control points, latent 32, t =
+   0.35, motion 1, 512^2, capacity 1024) in ch7 and ch3, its VJP, and one
+   LPIPS-on s2 step at `scripts/bench_train.py`'s shape (16 renders at
+   512^2, step 300, before Adam). Limits: the strip lists equal to the
+   reference's (the lists its compiled render composited over) in counts
+   and places, but for two list neighbours whose view depths lie within
+   1e-6, which may trade places; composited over the reference's lists,
+   each ch7 plane within 1e-4 x max(1, max |ref|) and ch3's image within
+   5e-4 on all but 0.5% of the pixels, and everywhere within one
+   alpha-cut step (2/255 of the channel's scale + the tolerance;
+   `tests/torch_parity.py`'s rule); over the port's own lists, the same
+   pixel count; overflow and overflow_max equal; at most 10 of 100,000
+   radii apart; the moved control points within 1e-5; every gradient
+   leaf of the VJP and of the step within 1e-3 relative L2 (leaves over
+   64 KB through their 64-projection sketch); the step's loss within 1e-5
+   relative, each loss term and its overflow counts within 1e-4 relative
+   + 1e-7. Prints every
+   difference beside its limit (and, for information, the Gaussians whose
+   KNN differs from the reference's, the 56 near-tie Gaussians among
+   them) and fails on any excess; launches K1 ch7 = 19, K1 ch3 = 2, K2 =
+   21, K3 = K4 = the row scatter = 17. `python3 chip_smoke.py --phase
+   reference` runs this phase alone after the build and keeps the card's
+   outputs in `build/reference_card.npz` (a development run: no result
+   line).
+12. Runs `bench_torch.py`'s functions on a fresh flagship scene with
    BENCH_ROUNDS ch3 renders instead of its 500: the selfcheck (must pass),
    the frames/s, and capacity 1024's delta against 4096; prints its line
    and the fps harness's frames/s beside it.
-12. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
+13. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
    both channel variants and K8 in all three; `launches` of K1 ch7, K2, K3
    and K4 and the row scatter from phase 6b, the main path, and each
    kernel's launches in every phase-9 and phase-10 run), the card's name
@@ -3299,6 +3328,40 @@ def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
             "per_step": per_step}
 
 
+# the frame twice a channel (its own strip lists, the reference's), the
+# VJP's render, the step's 16
+REFERENCE_LAUNCHES = {"K1 ch7": 19, "K1 ch3": 2, "K2": 21, "K3": 17,
+                      "K4": 17, "row scatter": 17}
+
+
+def reference_phase(dev, keep: dict | None = None) -> dict:
+    """Phase 11: the port on the card against the JAX package's reference
+    vectors (`dimo_tpu_torch/reference_check.py`, the files in
+    `tests/golden/`): the flagship frame in ch7 and ch3, its VJP and the
+    LPIPS-on s2 step at full width. Prints every difference beside its
+    limit, fails on any excess, and counts the kernels' launches."""
+    from dimo_tpu_torch import reference_check as rc
+    zero_launch_counts()
+    t0 = time.time()
+    rows = rc.check(dev, log=print, keep=keep)
+    sync(dev)
+    seconds = time.time() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    print(f"phase 11 reference: {len(rows)} rows in {seconds:.1f} s; "
+          f"launches {launches}")
+    over = [r for r in rows if not r["ok"]]
+    if over:
+        fail("phase 11: the card is over the reference's limits: "
+             + "; ".join(f"{r['what']} {r['value']} > {r['limit']}"
+                         for r in over))
+    if launches != REFERENCE_LAUNCHES:
+        fail(f"phase 11 launches {launches}, expected {REFERENCE_LAUNCHES}")
+    shares = [r["value"] / r["limit"] for r in rows
+              if 0 < r["limit"] < float("inf")]
+    return {"seconds": seconds, "rows": len(rows),
+            "worst_share_of_limit": max(shares)}
+
+
 def phase10(dev, card: str) -> dict:
     """Phase 10 (10a native I/O, 10b the parallel paths, 10c the quality
     run) under build/phase10/; prints each part's results and seconds and
@@ -3436,6 +3499,19 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "determinism"]:
         determinism_probe(dev)
         print(f"chip_smoke --phase determinism: done in "
+              f"{time.time() - t_start:.1f} s")
+        sys.exit(0)
+    if sys.argv[1:] == ["--phase", "reference"]:
+        # phase 11 alone: no result line; the card's outputs are kept in
+        # build/reference_card.npz to compare stage by stage
+        keep = {}
+        reference_phase(dev, keep)
+        import numpy as np
+        np.savez_compressed(os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "build", "reference_card.npz"),
+            **{f"{part}/{k}": v for part, d in keep.items()
+               for k, v in d.items()})
+        print(f"chip_smoke --phase reference: passed in "
               f"{time.time() - t_start:.1f} s")
         sys.exit(0)
     if sys.argv[1:] == ["--phase", "10"]:
@@ -4233,6 +4309,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     p10 = phase10(dev, card)
 
+    # --- 11. the card against the JAX package's reference vectors ------
+    torch.cuda.empty_cache()
+    ref = reference_phase(dev)
+
     # --- bench: bench_torch.py's functions, fewer rounds ---------------
     torch.cuda.empty_cache()
     cs.launches = dict.fromkeys(cs.launches, 0)
@@ -4448,7 +4528,8 @@ def main() -> None:
                       "test_fps_harness": p9["fps"],
                       "finetune_step_ms": p9["res_ms"],
                       "test_cli_uploads": p9["uploads"],
-                      "phase10": p10["summary"]}))
+                      "phase10": p10["summary"],
+                      "reference": ref}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

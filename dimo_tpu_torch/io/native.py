@@ -21,6 +21,8 @@ import os
 import numpy as np
 import torch
 
+from dimo_tpu_torch.utils import diagnostics
+
 _LIB = None
 _PATH = None
 _TRIED = False
@@ -163,7 +165,8 @@ class BatchPacker:
         assert idx.shape[0] == self.out_imgs[slot].shape[0]
         if self._held[slot] is not None:
             # a copy out of this slot may still be in flight
-            self._held[slot].synchronize()
+            with diagnostics.host_wait("packer_slot"):
+                self._held[slot].synchronize()
             self._held[slot] = None
         self._idx_keepalive[slot] = idx
         self._lib.packer_submit(
@@ -174,8 +177,9 @@ class BatchPacker:
 
     def get(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Blocks until all submitted jobs finish; returns the oldest
-        un-consumed slot's buffers."""
-        self._lib.packer_wait(self._h)
+        un-consumed slot's buffers (the wait: span `packer_wait`)."""
+        with diagnostics.span("packer_wait"):
+            self._lib.packer_wait(self._h)
         slot = self._gets % self._slots
         self._gets += 1
         return self.out_imgs[slot], self.out_masks[slot]

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dimo_tpu_torch.utils import diagnostics
 from dimo_tpu_torch.utils.general import cudnn_tf32, resolve_device
 
 # VGG16 conv plan: (out_channels, pool_before)
@@ -115,8 +116,10 @@ def lpips(params: dict, img1: torch.Tensor, img2: torch.Tensor,
     """img1/img2: (B, 3, H, W) in [0, 1] (fed unnormalised, like the
     reference). Returns (B,) distances."""
     dev = img1.device
-    shift = torch.as_tensor(_SHIFT, device=dev)[None, :, None, None]
-    scale = torch.as_tensor(_SCALE, device=dev)[None, :, None, None]
+    with diagnostics.host_wait("lpips_norm"):
+        shift = torch.as_tensor(_SHIFT, device=dev)[None, :, None, None]
+    with diagnostics.host_wait("lpips_norm"):
+        scale = torch.as_tensor(_SCALE, device=dev)[None, :, None, None]
     f1 = vgg_features(params, (img1 - shift) / scale, tf32)
     f2 = vgg_features(params, (img2 - shift) / scale, tf32)
     total = 0.0

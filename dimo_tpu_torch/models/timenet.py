@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from dimo_tpu_torch.ops.posenc import posenc, posenc_dim
+from dimo_tpu_torch.utils import diagnostics
 
 PTS_FREQS = 10
 TIME_FREQS = 6
@@ -70,7 +71,8 @@ class TimeNet(nn.Module):
         """pts (..., 3); t scalar or broadcastable to (..., 1); latent (L,)
         or broadcastable to (..., L). Returns (d_xyz (..., 3), d_quat (..., 4))."""
         batch_shape = pts.shape[:-1]
-        t = torch.as_tensor(t, dtype=pts.dtype, device=pts.device)
+        with diagnostics.host_wait("timenet_time", not torch.is_tensor(t)):
+            t = torch.as_tensor(t, dtype=pts.dtype, device=pts.device)
         t = torch.broadcast_to(t, batch_shape + (1,))
         if latent.ndim == 1:
             latent = torch.broadcast_to(latent, batch_shape + (latent.shape[-1],))

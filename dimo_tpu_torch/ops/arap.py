@@ -21,6 +21,7 @@ import torch
 
 from dimo_tpu_torch.ops import quat as quat_ops
 from dimo_tpu_torch.ops.neighbors import pairwise_sq_dists
+from dimo_tpu_torch.utils import diagnostics
 
 
 def connectivity_shared(points_t: torch.Tensor, k: int = 10,
@@ -130,8 +131,11 @@ def arap_loss(base_pts: torch.Tensor, d_xyz_t: torch.Tensor,
                              "N > sample_num")
         p = (valid.float() if valid is not None
              else torch.ones(n, device=base_pts.device))
-        sel = torch.multinomial(p.cpu(), sample_num, replacement=True,
-                                generator=generator).to(base_pts.device)
+        p = diagnostics.host_read("arap_sample", p, torch.Tensor.cpu)
+        sel = torch.multinomial(p, sample_num, replacement=True,
+                                generator=generator)
+        with diagnostics.host_wait("arap_upload"):
+            sel = sel.to(base_pts.device)
     idx, mask = connectivity_sampled(pts_ng, sel, k=k, radius=radius,
                                      valid=valid)
     return arap_error(pts_t, idx, mask, sel=sel)

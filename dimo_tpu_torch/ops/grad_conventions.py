@@ -18,15 +18,23 @@ from __future__ import annotations
 
 import torch
 
+from dimo_tpu_torch.utils import diagnostics
+
+
+def _bound(x: torch.Tensor, v: float) -> torch.Tensor:
+    """v as a tensor beside x (to a card: a copy the host waits for)."""
+    with diagnostics.host_wait("kink_bound"):
+        return x.new_tensor(v)
+
 
 def maximum(x: torch.Tensor, lo: float) -> torch.Tensor:
     """`jnp.maximum(x, lo)` for a scalar lo: ties split the cotangent."""
-    return torch.maximum(x, x.new_tensor(lo))
+    return torch.maximum(x, _bound(x, lo))
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """`jnp.clip(x, lo, hi)`: slope 0.5 at x == lo and at x == hi."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi))
 
 
 def abs(x: torch.Tensor) -> torch.Tensor:  # noqa: A001 (the jnp name)

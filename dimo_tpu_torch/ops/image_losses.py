@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from dimo_tpu_torch.ops import grad_conventions as gc
+from dimo_tpu_torch.utils import diagnostics
 from dimo_tpu_torch.utils.general import cudnn_tf32
 
 
@@ -62,7 +63,9 @@ class _Blur(torch.autograd.Function):
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
     """Mean SSIM over a batch; img: (B, H, W, C) in [0, 1]."""
-    win = torch.as_tensor(_gaussian_window(window_size), device=img1.device)
+    with diagnostics.host_wait("ssim_window"):
+        win = torch.as_tensor(_gaussian_window(window_size),
+                              device=img1.device)
     a = img1.permute(0, 3, 1, 2)
     b = img2.permute(0, 3, 1, 2)
     blur = lambda t: _Blur.apply(t.contiguous(), win)  # noqa: E731

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dimo_tpu_torch.utils import diagnostics
+
 
 def posenc_dim(num_freqs: int, input_dims: int, include_input: bool = False) -> int:
     return (input_dims if include_input else 0) + 2 * num_freqs * input_dims
@@ -17,9 +19,9 @@ def posenc_dim(num_freqs: int, input_dims: int, include_input: bool = False) -> 
 
 def posenc(x: torch.Tensor, num_freqs: int, include_input: bool = False) -> torch.Tensor:
     """Encode (..., D) -> (..., posenc_dim)."""
-    freqs = torch.from_numpy(
-        np.exp2(np.linspace(0.0, num_freqs - 1, num_freqs)).astype(np.float32)
-    ).to(x.device)
+    with diagnostics.host_wait("posenc_freqs"):
+        freqs = torch.from_numpy(np.exp2(np.linspace(
+            0.0, num_freqs - 1, num_freqs)).astype(np.float32)).to(x.device)
     xf = x[..., None] * freqs                                  # (..., D, F)
     enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-1)  # (..., D, F, 2)
     enc = enc.permute(*range(enc.ndim - 3), -2, -1, -3)        # (..., F, 2, D)

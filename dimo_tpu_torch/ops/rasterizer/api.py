@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from dimo_tpu_torch.parallel import mesh as mesh_mod
+from dimo_tpu_torch.utils import diagnostics
 from dimo_tpu_torch.ops.rasterizer import projection as proj_mod
 from dimo_tpu_torch.ops.rasterizer import strips as strips_mod
 from dimo_tpu_torch.ops.rasterizer.composite_strips import composite_strips
@@ -55,9 +56,13 @@ def _round_up(x: int, m: int) -> int:
 
 
 def camera_tensors(camera, device) -> tuple:
-    """(world_view, full_proj, campos) of a numpy Camera as float32 tensors."""
-    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
-                 for a in (camera.world_view, camera.full_proj, camera.campos))
+    """(world_view, full_proj, campos) of a numpy Camera as float32 tensors
+    (to a card: three copies the host waits for)."""
+    out = []
+    for a in (camera.world_view, camera.full_proj, camera.campos):
+        with diagnostics.host_wait("camera"):
+            out.append(torch.as_tensor(a, dtype=torch.float32, device=device))
+    return tuple(out)
 
 
 def _tapped(mean2d, mean2d_tap, width: int, height: int):
@@ -65,7 +70,8 @@ def _tapped(mean2d, mean2d_tap, width: int, height: int):
     gradient times 0.5 * size, the NDC-scaled dL/dmean2D convention."""
     if mean2d_tap is None:
         return mean2d
-    scale_vec = mean2d.new_tensor([0.5 * width, 0.5 * height])
+    with diagnostics.host_wait("mean2d_tap"):
+        scale_vec = mean2d.new_tensor([0.5 * width, 0.5 * height])
     return mean2d + mean2d_tap * scale_vec
 
 

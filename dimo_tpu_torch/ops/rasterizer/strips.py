@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from dimo_tpu_torch.ops.rasterizer import tiles as tiles_mod
+from dimo_tpu_torch.utils import diagnostics
 
 STRIP_H = 32
 STRIP_W = 32
@@ -110,5 +111,6 @@ def coef_table(mean2d, conic, opacity, color, depth, normal,
             hsc, hsr, torch.zeros_like(mx)]
     tab = torch.stack(cols, dim=-1)                               # (N, 16)
     dummy = torch.zeros((1, COEF_DIM), dtype=tab.dtype, device=tab.device)
-    dummy[0, C_F] = DUMMY_CF
+    with diagnostics.host_wait("coef_dummy"):
+        dummy[0, C_F] = DUMMY_CF
     return torch.cat([tab, dummy], dim=0).contiguous()

@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from dimo_tpu_torch.ops.rasterizer import windowdma
+from dimo_tpu_torch.utils import diagnostics
 
 # the tile compositor's tile, in pixels
 TILE_H = 32
@@ -203,7 +204,7 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
         big = big & ~med
         n_med = torch.sum(med.to(i32))
         k_med = min(TIER2_K, n)
-        if int(n_med) > 0:
+        if diagnostics.host_read("bin_n_med", n_med) > 0:
             med_dq, med_i = _nearest_k(torch.where(med, dq, depth_max + 1), k_med)
             mvalid = med_dq <= depth_max
             rmin_m, rmax_m = rmin[med_i], rmax[med_i]
@@ -242,7 +243,7 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
 
     # --- big path, only when a big gaussian exists (host read of n_big
     # stands for the reference's lax.cond)
-    n_big = int(torch.sum(big.to(i32)))
+    n_big = diagnostics.host_read("bin_n_big", torch.sum(big.to(i32)))
     if n_big == 0:
         count = seg_len.clamp_max(capacity)
         drops = torch.clamp_min(seg_len - capacity, 0)

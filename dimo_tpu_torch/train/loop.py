@@ -50,7 +50,7 @@ from dimo_tpu_torch.ops import sh as sh_ops
 from dimo_tpu_torch.parallel import mesh as mesh_mod
 from dimo_tpu_torch.train import optim
 from dimo_tpu_torch.train.step import LossConfig, init_state, make_train_step
-from dimo_tpu_torch.utils import cameras
+from dimo_tpu_torch.utils import cameras, diagnostics
 from dimo_tpu_torch.utils.general import resolve_device
 
 # the dataset is kept on the device when it is at most this large
@@ -280,7 +280,12 @@ class Trainer:
         packer's slot, packed while the previous step ran, whose copy to
         the device is asynchronous (the next batch's meta is drawn and its
         frames submitted to the packer's other slot first); else one numpy
-        fancy-index gather and an upload."""
+        fancy-index gather and an upload. The `sample_batch` span of
+        `utils/diagnostics.py`."""
+        with diagnostics.span("sample_batch"):
+            return self._sample_batch()
+
+    def _sample_batch(self):
         meta = self._pending_meta or self._sample_meta()
         self._pending_meta = None
         loc = self._local(meta)
@@ -375,8 +380,9 @@ class Trainer:
         cap_max = int(self.opt.get("tile_capacity_max", 4096))
         if self.tile_capacity >= cap_max:
             return
-        ov = float(metrics["overflow"])
-        ovm = float(metrics.get("overflow_max", 0.0))
+        ov = diagnostics.host_read("overflow", metrics["overflow"], float)
+        ovm = diagnostics.host_read(
+            "overflow", metrics.get("overflow_max", 0.0), float)
         # sustained heavy truncation: EITHER one strip drops > 25% of its
         # capacity (truncation concentrated in one silhouette-dense strip,
         # which the batch total dilutes), OR the drops per render exceed
@@ -462,6 +468,13 @@ class Trainer:
             self.clear_snapshot(snapshot_dir)
 
     def train_step_once(self, lpips_fn=None):
+        """One step: the batch, the step function, the guard's and the
+        capacity's reads, the log and the step's cadence (checkpoint,
+        densify, prune); the `step` span of `utils/diagnostics.py`."""
+        with diagnostics.span("step", step=self.step + 1):
+            self._step_once(lpips_fn)
+
+    def _step_once(self, lpips_fn):
         opt = self.opt
         self.step += 1
         res = render_resolution_for_step(self.step)
@@ -469,7 +482,7 @@ class Trainer:
         step_fn = self.get_step_fn(self.stage, res, shape, lpips_fn)
         self._last_b = max(1, len(batch["latent_idx_all"]))   # all ranks'
         self.state, metrics = step_fn(self.state, batch)
-        if int(metrics["nonfinite_grad"]):
+        if diagnostics.host_read("grad_guard", metrics["nonfinite_grad"]):
             print(f"[guard] step {self.step}: non-finite/overflow gradient "
                   f"(sup={float(metrics['grad_sup']):.2e} "
                   f"l2={float(metrics['grad_norm']):.2e}): update skipped "

@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from dimo_tpu_torch.models.gaussians import PARAM_FIELDS
+from dimo_tpu_torch.utils import diagnostics
 
 BETA1 = 0.9
 BETA2 = 0.999
@@ -75,8 +76,10 @@ def update(leaves: dict, grads: dict, state: AdamState,
     nothing in place. lrs: {name: float} learning rate per leaf."""
     step = state.step + 1
     t = step.to(torch.float32)
-    b1 = torch.tensor(BETA1, dtype=torch.float32, device=t.device)
-    b2 = torch.tensor(BETA2, dtype=torch.float32, device=t.device)
+    with diagnostics.host_wait("adam_betas"):
+        b1 = torch.tensor(BETA1, dtype=torch.float32, device=t.device)
+    with diagnostics.host_wait("adam_betas"):
+        b2 = torch.tensor(BETA2, dtype=torch.float32, device=t.device)
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
     mu, nu, new = {}, {}, {}

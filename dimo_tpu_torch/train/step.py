@@ -81,7 +81,7 @@ from dimo_tpu_torch.ops import image_losses as L
 from dimo_tpu_torch.ops import neighbors
 from dimo_tpu_torch.parallel import mesh as mesh_mod
 from dimo_tpu_torch.train import optim
-from dimo_tpu_torch.utils import schedules
+from dimo_tpu_torch.utils import diagnostics, schedules
 
 
 @dataclasses.dataclass
@@ -224,7 +224,11 @@ def make_train_step(
     replaces the times drawn from `state.rng`; `mark(name)`, if given, is
     called after the renders, the LPIPS term (with an `lpips_fn`; its
     interval also holds the GT's conversion), the other losses, the
-    backward and the update (e.g. to record CUDA events).
+    backward and the update (e.g. to record CUDA events). With
+    `utils/diagnostics.py`'s recorder on, the same five intervals, from
+    the step's start, are spans of those names (`renders`, `lpips`,
+    `losses`, `backward`, `adam`); a step called with a `mark` turns the
+    recorder on for the rest of the process, since its caller traces it.
     `lpips_fn(img1, img2)` -> (b,) distances of (b, 3, h, w) images.
     `train_step.loss_fn` is the loss alone, of this rank's jobs under a
     `mesh` (the batch is then this rank's share, see the module
@@ -283,8 +287,7 @@ def make_train_step(
                 for i in range(n_loc)]
         if vae_rng is not None:
             skip_vae_noise(params, vae_rng, B - rows.stop)
-        if mark is not None:
-            mark("renders")
+        diagnostics.RECORDER.cut("renders", mark)
         stack = lambda k: torch.stack([o[k] for o in outs])  # noqa: E731
         imgs = stack("image")                                 # (B, 3, h, w)
         masks = stack("alpha")
@@ -299,14 +302,14 @@ def make_train_step(
             gt_m = resize_linear(gt_m, height, width)
         if lpips_fn is not None:
             lp = motion_terms(torch.mean, lpips_fn(imgs, gt))
-            if mark is not None:
-                mark("lpips")
+            diagnostics.RECORDER.cut("lpips", mark)
         else:
             lp = torch.zeros((n_motions,), device=dev)
 
         per_img_mse = torch.mean((imgs - gt) ** 2, dim=(1, 2, 3))   # (B,)
-        mse_w = torch.as_tensor(batch["mse_w"], dtype=torch.float32,
-                                device=dev)
+        with diagnostics.host_wait("mse_w"):
+            mse_w = torch.as_tensor(batch["mse_w"], dtype=torch.float32,
+                                    device=dev)
         loss = lcfg.lambda_mse * torch.sum(mse_w * per_img_mse)
 
         nhwc = lambda x: x.permute(0, 2, 3, 1)               # noqa: E731
@@ -356,8 +359,9 @@ def make_train_step(
             if arap_times is None:
                 arap_times = torch.rand((lcfg.arap_t_samples,),
                                         generator=generator)
-            q = torch.as_tensor(arap_times, dtype=torch.float32,
-                                device=dev)[:, None, None]
+            with diagnostics.host_wait("arap_times"):
+                q = torch.as_tensor(arap_times, dtype=torch.float32,
+                                    device=dev)[:, None, None]
             pts = base[None].expand(q.shape[0], *base.shape)
             for li in m_idx:
                 lat = G.sample_latent(params, li, None)
@@ -402,8 +406,7 @@ def make_train_step(
         vis_aux = {"radii": outs[-1]["radii"].detach(),
                    "visibility": outs[-1]["visibility_filter"],
                    "debug_render": imgs[0].detach(), "debug_gt": gt[0]}
-        if mark is not None:
-            mark("losses")
+        diagnostics.RECORDER.cut("losses", mark)
         return loss, (metrics, vis_aux)
 
     def whole_batch_metrics(m: dict) -> dict:
@@ -427,6 +430,9 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: dict, arap_times=None,
                    mark=None):
+        if mark is not None:
+            diagnostics.RECORDER.start()    # the caller traces the step
+        diagnostics.RECORDER.cut(None)
         step = state.step + 1
         leaves = optim.named_leaves(state.params)
         for leaf in leaves.values():
@@ -440,8 +446,7 @@ def make_train_step(
                                            step, arap_times, state.rng, mark,
                                            tap)
         loss.backward()
-        if mark is not None:
-            mark("backward")
+        diagnostics.RECORDER.cut("backward", mark)
         with torch.no_grad():
             grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                      for k, v in leaves.items()}
@@ -493,8 +498,7 @@ def make_train_step(
                 upd = G.update_max_radii(state.aux, radii, vis)
                 state.aux = G.add_densification_stats(upd, gtap, vis)
         state.step = step
-        if mark is not None:
-            mark("adam")
+        diagnostics.RECORDER.cut("adam", mark, last=True)
         metrics = dict(metrics)
         metrics["nonfinite_grad"] = (~grads_ok).to(torch.int32)
         metrics["grad_norm"] = gnorm

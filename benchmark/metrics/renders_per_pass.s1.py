@@ -1,0 +1,5 @@
+"""`renders_per_pass.train`'s reading, in the cells where `train_step_ms`
+is reported per layer (`train_step_ms.s1`)."""
+from harness.spec import load_module
+
+read = load_module("metrics", "renders_per_pass.train").read

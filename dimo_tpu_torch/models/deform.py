@@ -5,26 +5,30 @@ the 4 nearest control points, a per-neighbour local-frame rigid
 transform, and the quaternion composition of the blended residual
 rotations. The neighbour lookup is ONE column gather (kernel K2,
 `ops/smallgather.gather_small_cols`) of the fused (11, M) table, and the
-blend runs on flat (N,) component rows in the reference's op order.
+blend runs on flat (N,) component rows in the reference's op order. With
+the control points' motion of R renders (d_xyz_c (R, M, 3)) the table is
+(R, 11, M), gathered once a render, and the blend runs on (R, N) rows.
 """
 from __future__ import annotations
 
 import torch
 
 from dimo_tpu_torch.ops.smallgather import gather_small_cols
+from dimo_tpu_torch.utils.general import per_render
 
 EPS = 1e-7
 
 
 def knn_weights(nn_dist: torch.Tensor, c_radius_n: torch.Tensor) -> torch.Tensor:
-    """w = l1-normalize(exp(-d^2 / (2 r_n^2)) + eps) over the K axis (axis 0;
-    inputs are (K, N)); dists carry no gradient."""
+    """w = l1-normalize(exp(-d^2 / (2 r_n^2)) + eps) over the K axis (axis
+    -2; inputs are (K, N), radii also (R, K, N)); dists carry no
+    gradient."""
     nn_dist = nn_dist.detach()
     # r^2 floored at 1e-8, as the reference floors it (deform.py:39): the
     # forward is unchanged and the backward avoids 0*inf as r -> 0
     r2 = torch.clamp_min(c_radius_n * c_radius_n, 1e-8)
     w = torch.exp(-(nn_dist ** 2) / (2.0 * r2)) + EPS
-    return w / torch.sum(torch.abs(w), dim=0, keepdim=True)
+    return w / torch.sum(torch.abs(w), dim=-2, keepdim=True)
 
 
 def _rotate_flat(qw, qx, qy, qz, vx, vy, vz):
@@ -49,21 +53,31 @@ def lbs_blend(
     xyz: torch.Tensor,          # (N, 3) canonical gaussian centers
     rotation: torch.Tensor,     # (N, 4) raw (unnormalized) gaussian quats
     c_xyz: torch.Tensor,        # (M, 3) canonical control points
-    d_xyz_c: torch.Tensor,      # (M, 3) control point translations at t
-    d_rot_c: torch.Tensor,      # (M, 4) control point rotation residuals at t
+    d_xyz_c: torch.Tensor,      # ([R,] M, 3) control point translations at t
+    d_rot_c: torch.Tensor,      # ([R,] M, 4) control point rotation residuals
     c_radius: torch.Tensor,     # (M, 1) linear radii
     nn_idx: torch.Tensor,       # (K, N) int32 neighbor cpt indices
     nn_dist: torch.Tensor,      # (K, N) neighbor euclidean distances
     local_frame: bool = True,
 ):
-    """Returns (deformed xyz (N,3), composed rotation (N,4) normalized)."""
+    """Returns (deformed xyz ([R,] N, 3), composed rotation ([R,] N, 4)
+    normalized)."""
     k, n = nn_idx.shape
-    # ONE fused neighbour lookup, column layout: rows are components
-    # [radius | c_xyz(3) | d_xyz(3) | d_rot(4)], columns are (K*N) sites
-    table_t = torch.cat([c_radius.T, c_xyz.T, d_xyz_c.T, d_rot_c.T],
-                        dim=0).contiguous()                     # (11, M)
-    g = gather_small_cols(table_t, nn_idx)                      # (11, K, N)
-    w = knn_weights(nn_dist, g[0])                              # (K, N)
+    lead = d_xyz_c.shape[:-2]
+    m = c_xyz.shape[0]
+    # ONE fused neighbour lookup a render, column layout: rows are
+    # components [radius | c_xyz(3) | d_xyz(3) | d_rot(4)], columns are
+    # (K*N) sites
+    table_t = torch.cat([c_radius.T.expand(*lead, 1, m),
+                         c_xyz.T.expand(*lead, 3, m),
+                         d_xyz_c.transpose(-1, -2), d_rot_c.transpose(-1, -2)],
+                        dim=-2).contiguous()                    # (..., 11, M)
+    if lead:
+        g = per_render(lambda i: gather_small_cols(table_t[i], nn_idx),
+                       lead[0])                                 # (R, 11, K, N)
+    else:
+        g = gather_small_cols(table_t, nn_idx)                  # (11, K, N)
+    w = knn_weights(nn_dist, g[..., 0, :, :])                   # (..., K, N)
 
     x0, x1, x2 = xyz[:, 0], xyz[:, 1], xyz[:, 2]
     px = torch.zeros_like(x0)
@@ -74,10 +88,10 @@ def lbs_blend(
     ry = torch.zeros_like(x0)
     rz = torch.zeros_like(x0)
     for j in range(k):
-        wk = w[j]
-        cx, cy, cz = g[1, j], g[2, j], g[3, j]
-        dx, dy, dz = g[4, j], g[5, j], g[6, j]
-        qw, qx, qy, qz = g[7, j], g[8, j], g[9, j], g[10, j]
+        wk = w[..., j, :]
+        cx, cy, cz = (g[..., c, j, :] for c in (1, 2, 3))
+        dx, dy, dz = (g[..., c, j, :] for c in (4, 5, 6))
+        qw, qx, qy, qz = (g[..., c, j, :] for c in (7, 8, 9, 10))
         if local_frame:
             mx, my, mz = _rotate_flat(qw, qx, qy, qz,
                                       x0 - cx, x1 - cy, x2 - cz)

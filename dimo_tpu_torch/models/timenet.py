@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -68,16 +69,26 @@ class TimeNet(nn.Module):
             self.rot_1.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0]))
 
     def forward(self, pts: torch.Tensor, t, latent: torch.Tensor):
-        """pts (..., 3); t scalar or broadcastable to (..., 1); latent (L,)
-        or broadcastable to (..., L). Returns (d_xyz (..., 3), d_quat (..., 4))."""
-        batch_shape = pts.shape[:-1]
+        """pts (..., 3); t a scalar or (..., 1); latent (..., L); see
+        `embed`. Returns (d_xyz (..., 3), d_quat (..., 4))."""
+        return self.mlp(self.embed(pts, t, latent))
+
+    def embed(self, pts: torch.Tensor, t, latent: torch.Tensor):
+        """The MLP's input, (..., 92 + L). The batch shape is the three's
+        broadcast, so pts (M, 3), t (R, 1, 1) and latent (R, 1, L) give R
+        renders' inputs at once, each point's encoding made once."""
         with diagnostics.host_wait("timenet_time", not torch.is_tensor(t)):
             t = torch.as_tensor(t, dtype=pts.dtype, device=pts.device)
-        t = torch.broadcast_to(t, batch_shape + (1,))
-        if latent.ndim == 1:
-            latent = torch.broadcast_to(latent, batch_shape + (latent.shape[-1],))
-        emb = torch.cat([posenc(pts, PTS_FREQS), posenc(t, TIME_FREQS), latent],
-                        dim=-1)
+        t = t.reshape(t.shape or (1,))
+        # numpy's rule: torch.broadcast_shapes imports sympy on first use
+        batch = np.broadcast_shapes(pts.shape[:-1], t.shape[:-1],
+                                    latent.shape[:-1])
+        parts = (posenc(pts, PTS_FREQS), posenc(t, TIME_FREQS), latent)
+        return torch.cat([x.expand(*batch, x.shape[-1]) for x in parts],
+                         dim=-1)
+
+    def mlp(self, emb: torch.Tensor):
+        """(d_xyz (..., 3), d_quat (..., 4)) of an `embed` input."""
         h = emb
         for i, lin in enumerate(self.trunk):
             h = torch.relu(lin(h))

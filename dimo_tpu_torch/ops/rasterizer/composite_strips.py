@@ -57,6 +57,7 @@ from dimo_tpu_torch.ops.rasterizer.gather import gather_rows, gather_rows_bwd
 from dimo_tpu_torch.ops.rasterizer.strips import (
     C_A, C_B, C_C, C_D, C_E, C_F, C_HSC, C_HSR, C_R, COEF_DIM, STRIP_H,
     STRIP_W, num_strips)
+from dimo_tpu_torch.utils.general import per_render
 
 OUT_CH = 7            # r g b depth nx ny nz (the full path)
 ALPHA_EPS = 1.0 / 255.0
@@ -332,12 +333,18 @@ def _composite_bwd_cuda(table, idx, count, tfin, gout):
 
 
 def _forward(table, idx, count, height, width, out_ch, entries_out=None):
-    if table.device.type == "cuda":
-        return _composite_cuda(table, idx, count, height, width, out_ch,
-                               entries_out)
-    if table.device.type == "cpu":
-        return composite_strips_plain(table, idx, count, height, width, out_ch)
-    raise ValueError(f"unsupported device {table.device}")
+    """Each render's composite, (R, out_ch + 1, H, W): one launch a render
+    on the card."""
+    def one(i):
+        e = entries_out[i] if entries_out is not None else None
+        if table.device.type == "cuda":
+            return _composite_cuda(table[i], idx[i], count[i], height, width,
+                                   out_ch, e)
+        if table.device.type == "cpu":
+            return composite_strips_plain(table[i], idx[i], count[i], height,
+                                          width, out_ch)
+        raise ValueError(f"unsupported device {table.device}")
+    return per_render(one, table.shape[0])
 
 
 def composite_strips_bwd(table: torch.Tensor, idx: torch.Tensor,
@@ -354,8 +361,9 @@ def composite_strips_bwd(table: torch.Tensor, idx: torch.Tensor,
 
 
 class _Composite(torch.autograd.Function):
-    """The 7-channel composite with its VJP, differentiable in the table
-    (the reference's `composite_strips` custom VJP)."""
+    """The 7-channel composite of R renders with its VJP, differentiable
+    in the (R, N+1, 16) table (the reference's `composite_strips` custom
+    VJP): K3 and the row scatter once a render."""
 
     @staticmethod
     def forward(ctx, table, idx, count, height, width):
@@ -366,11 +374,14 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         table, idx, count, out = ctx.saved_tensors
-        dslot = composite_strips_bwd(table, idx, count, out[OUT_CH],
-                                     gout.contiguous())
-        # K3 writes 0 past a strip's count: only the live slots are read
-        return (gather_rows_bwd(dslot, idx, table.shape[0], count), None,
-                None, None, None)
+        gout = gout.contiguous()
+
+        def one(i):
+            dslot = composite_strips_bwd(table[i], idx[i], count[i],
+                                         out[i, OUT_CH], gout[i])
+            # K3 writes 0 past a strip's count: only the live slots are read
+            return gather_rows_bwd(dslot, idx[i], table.shape[1], count[i])
+        return per_render(one, table.shape[0]), None, None, None, None
 
 
 def composite_strips(table: torch.Tensor, idx: torch.Tensor,
@@ -383,9 +394,15 @@ def composite_strips(table: torch.Tensor, idx: torch.Tensor,
     that stops a strip once all its pixels have T < T_EXIT (on the card;
     the CPU's plain version is exhaustive). On the card, `entries_out`
     (optional int32 (Ns,), outside autograd only) receives how many list
-    entries each strip composited."""
+    entries each strip composited. With a leading render axis on every
+    input (table (R, N+1, 16), idx (R, Ns, CS), count (R, Ns)) the result
+    is (R, out_ch + 1, height, width), one launch a render."""
     if out_ch not in (3, 4, OUT_CH):
         raise ValueError(f"out_ch must be 3, 4 or 7, got {out_ch}")
+    if table.dim() == 2:
+        return composite_strips(
+            table[None], idx[None], count[None], height, width, out_ch,
+            None if entries_out is None else entries_out[None])[0]
     if not (torch.is_grad_enabled() and table.requires_grad):
         return _forward(table, idx, count, height, width, out_ch, entries_out)
     if out_ch != OUT_CH:

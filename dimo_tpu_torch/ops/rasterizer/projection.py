@@ -52,8 +52,8 @@ def camera_facing_normal(scales, quats, means3d, campos) -> torch.Tensor:
     n = [torch.where(idx == 0, cols[0][i],
                      torch.where(idx == 1, cols[1][i], cols[2][i]))
          for i in range(3)]
-    to_cam = campos[None, :] - means3d
-    dot = n[0] * to_cam[:, 0] + n[1] * to_cam[:, 1] + n[2] * to_cam[:, 2]
+    to_cam = campos[..., None, :] - means3d
+    dot = n[0] * to_cam[..., 0] + n[1] * to_cam[..., 1] + n[2] * to_cam[..., 2]
     sign = torch.where(dot < 0.0, -1.0, 1.0)
     return torch.stack([n[0] * sign, n[1] * sign, n[2] * sign], dim=-1)
 
@@ -81,21 +81,32 @@ def project(
     means3d (N,3); scales (N,3) linear; quats (N,4); opacities (N,1);
     sh_coeffs (N, K, 3) with K >= (sh_degree+1)^2; camera matrices as
     tensors on the Gaussians' device; valid: optional (N,) bool mask.
-    """
-    n = means3d.shape[0]
-    ones = torch.ones((n, 1), dtype=means3d.dtype, device=means3d.device)
-    hom = torch.cat([means3d, ones], dim=-1)                 # (N, 4)
 
-    p_view = hom @ world_view                                # (N, 4)
-    tz = p_view[:, 2]
+    R renders in one pass: means3d (R,N,3), world_view and full_proj
+    (R,4,4), campos (R,3), and quats (R,N,4) or the shared (N,4); the
+    rest is shared, the field of view too. Every field of the result then
+    has the leading R.
+    """
+    lead = means3d.shape[:-1]                                # (N,) or (R, N)
+    # each render its own view of the shared shapes, so that each render's
+    # gradient to them is formed alone and summed over the renders last,
+    # as renders made one by one sum it (where the rotation's gradient
+    # cancels to rounding, as at isotropic scales, the order matters)
+    quats = quats.expand(*lead, 4)
+    scales = scales.expand(*lead, 3)
+    ones = torch.ones((*lead, 1), dtype=means3d.dtype, device=means3d.device)
+    hom = torch.cat([means3d, ones], dim=-1)                 # (..., N, 4)
+
+    p_view = hom @ world_view                                # (..., N, 4)
+    tz = p_view[..., 2]
     in_front = tz > 0.2
 
-    p_clip = hom @ full_proj                                 # (N, 4)
-    p_w = 1.0 / (p_clip[:, 3] + 1e-7)
-    ndc = p_clip[:, :2] * p_w[:, None]
+    p_clip = hom @ full_proj                                 # (..., N, 4)
+    p_w = 1.0 / (p_clip[..., 3] + 1e-7)
+    ndc = p_clip[..., :2] * p_w[..., None]
     mean2d = torch.stack(
-        [((ndc[:, 0] + 1.0) * width - 1.0) * 0.5,
-         ((ndc[:, 1] + 1.0) * height - 1.0) * 0.5], dim=-1)
+        [((ndc[..., 0] + 1.0) * width - 1.0) * 0.5,
+         ((ndc[..., 1] + 1.0) * height - 1.0) * 0.5], dim=-1)
 
     # EWA: cov2d = J R cov3d R^T J^T with fov-clamped J. The camera
     # scalars are float32 in the reference; round them the same way.
@@ -106,8 +117,8 @@ def project(
     tz_safe = torch.where(in_front, tz, 1.0)
     limx = float(f32(1.3) * tan_fovx)
     limy = float(f32(1.3) * tan_fovy)
-    txz = gc.clip(p_view[:, 0] / tz_safe, -limx, limx)
-    tyz = gc.clip(p_view[:, 1] / tz_safe, -limy, limy)
+    txz = gc.clip(p_view[..., 0] / tz_safe, -limx, limx)
+    tyz = gc.clip(p_view[..., 1] / tz_safe, -limy, limy)
     tx = txz * tz_safe
     ty = tyz * tz_safe
 
@@ -124,11 +135,11 @@ def project(
     r21 = 2 * (qy * qz + qw * qx)
     r22 = 1 - 2 * (qx * qx + qy * qy)
     R_comp = ((r00, r01, r02), (r10, r11, r12), (r20, r21, r22))
-    Rv = world_view[:3, :3].T                                # view rotation
-    WR = [[sum(Rv[i, j] * R_comp[j][k] for j in range(3)) for k in range(3)]
-          for i in range(3)]
+    Rv = world_view[..., :3, :3].transpose(-1, -2)           # view rotation
+    WR = [[sum(Rv[..., i, j, None] * R_comp[j][k] for j in range(3))
+           for k in range(3)] for i in range(3)]
     s = scales * scale_modifier
-    sc = (s[:, 0], s[:, 1], s[:, 2])
+    sc = (s[..., 0], s[..., 1], s[..., 2])
     A = [[WR[i][k] * sc[k] for k in range(3)] for i in range(3)]
 
     # full_like(...) / t: a true division, as the reference rounds it
@@ -169,12 +180,13 @@ def project(
     cull_radius = torch.where(ok, cull_radius, 0.0)
 
     if override_color is not None:
-        color = torch.broadcast_to(override_color, (n, 3))
+        color = torch.broadcast_to(override_color, (*lead, 3))
     else:
-        dirs = means3d - campos[None, :]
+        dirs = means3d - campos[..., None, :]
         dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-8)
         col = sh_ops.eval_sh(sh_degree, sh_coeffs.transpose(-1, -2), dirs)
-        color = gc.maximum(col + 0.5, 0.0)
+        # degree 0 does not read the direction: one colour for every render
+        color = gc.maximum(col + 0.5, 0.0).expand(*lead, 3)
 
     normal = camera_facing_normal(scales, quats, means3d, campos)
 

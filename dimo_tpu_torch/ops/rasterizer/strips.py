@@ -22,7 +22,6 @@ from typing import NamedTuple
 import torch
 
 from dimo_tpu_torch.ops.rasterizer import tiles as tiles_mod
-from dimo_tpu_torch.utils import diagnostics
 
 STRIP_H = 32
 STRIP_W = 32
@@ -82,19 +81,21 @@ def strip_owners(count: torch.Tensor, capacity: int, n: int) -> torch.Tensor:
 def coef_table(mean2d, conic, opacity, color, depth, normal,
                height: int, width: int) -> torch.Tensor:
     """(N+1, 16) per-gaussian table: home-strip-CENTER-local power-quadratic
-    coefficients (log2-scaled), composited channels, and home strip ids.
+    coefficients (log2-scaled), composited channels, and home strip ids;
+    (R, N+1, 16) for inputs with a leading render axis (mean2d (R, N, 2);
+    the opacity (N, 1) is shared).
 
     power2(x, y) = cA x^2 + cB xy + cC y^2 + cD x + cE y + cF and
     alpha = exp2(power2), with log2(opacity) folded into cF.
     """
     nrows, ncols = num_strips(height, width)
-    mx, my = mean2d[:, 0], mean2d[:, 1]
+    mx, my = mean2d[..., 0], mean2d[..., 1]
     hsc = torch.clamp(torch.floor(mx.detach() / STRIP_W), 0, ncols - 1)
     hsr = torch.clamp(torch.floor(my.detach() / STRIP_H), 0, nrows - 1)
     mxl = mx - (hsc * STRIP_W + STRIP_W // 2)
     myl = my - (hsr * STRIP_H + STRIP_H // 2)
-    ca, cb, cc = conic[:, 0], conic[:, 1], conic[:, 2]
-    op = opacity[:, 0]
+    ca, cb, cc = conic[..., 0], conic[..., 1], conic[..., 2]
+    op = opacity[..., 0]
     s = INV_LN2
     cA = -0.5 * s * ca
     cB = -s * cb
@@ -106,11 +107,11 @@ def coef_table(mean2d, conic, opacity, color, depth, normal,
     cF = (cA * mxl * mxl + cC * myl * myl - s * cb * mxl * myl
           + s * torch.log(torch.clamp_min(op, 1e-30)))
     cols = [cA, cB, cC, cD, cE, cF,
-            color[:, 0], color[:, 1], color[:, 2], depth,
-            normal[:, 0], normal[:, 1], normal[:, 2],
+            color[..., 0], color[..., 1], color[..., 2], depth,
+            normal[..., 0], normal[..., 1], normal[..., 2],
             hsc, hsr, torch.zeros_like(mx)]
-    tab = torch.stack(cols, dim=-1)                               # (N, 16)
-    dummy = torch.zeros((1, COEF_DIM), dtype=tab.dtype, device=tab.device)
-    with diagnostics.host_wait("coef_dummy"):
-        dummy[0, C_F] = DUMMY_CF
-    return torch.cat([tab, dummy], dim=0).contiguous()
+    tab = torch.stack(cols, dim=-1)                          # (..., N, 16)
+    dummy = torch.zeros((*tab.shape[:-2], 1, COEF_DIM), dtype=tab.dtype,
+                        device=tab.device)
+    dummy[..., C_F] = DUMMY_CF    # a fill on the device: the host waits not
+    return torch.cat([tab, dummy], dim=-2).contiguous()

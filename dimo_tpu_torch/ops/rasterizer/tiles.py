@@ -41,7 +41,8 @@ TIER2_K mediums (or k_big bigs) exist.
 
 The reference's `lax.cond` branches (medium tier present, big tier
 present) are Python `if`s on a scalar read back from the device: one
-host sync per branch per render.
+host sync per branch per call, which bins every render of a pass at
+once along a leading axis (`build_bin_lists`).
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ import torch
 
 from dimo_tpu_torch.ops.rasterizer import windowdma
 from dimo_tpu_torch.utils import diagnostics
+from dimo_tpu_torch.utils.general import per_render
 
 # the tile compositor's tile, in pixels
 TILE_H = 32
@@ -97,10 +99,10 @@ def _depth_bits_for(t: int) -> int:
 
 
 def _quantize_depth(depth, ok, depth_max: int):
-    """Monotonic int depth key in [0, depth_max]."""
+    """Monotonic int depth key in [0, depth_max], per render (last axis)."""
     d = torch.where(ok, depth, 0.0)
-    lo = torch.min(d)
-    hi = torch.max(torch.where(ok, depth, -torch.inf))
+    lo = torch.amin(d, dim=-1, keepdim=True)
+    hi = torch.amax(torch.where(ok, depth, -torch.inf), dim=-1, keepdim=True)
     hi = torch.where(torch.isfinite(hi), hi, lo + 1.0)
     # a true division (scalar / tensor in torch multiplies by a reciprocal)
     scale = torch.full_like(hi, depth_max) / torch.clamp_min(hi - lo, 1e-6)
@@ -108,10 +110,11 @@ def _quantize_depth(depth, ok, depth_max: int):
 
 
 def _nearest_k(key: torch.Tensor, k: int):
-    """(keys, indices) of the k smallest keys, ascending, lower index first
-    on ties (the selection `lax.top_k(-key, k)` makes)."""
-    skey, sidx = torch.sort(key, stable=True)
-    return skey[:k], sidx[:k].to(torch.int32)
+    """(keys, indices) of the k smallest keys of each render (last axis),
+    ascending, lower index first on ties (the selection `lax.top_k(-key,
+    k)` makes)."""
+    skey, sidx = torch.sort(key, dim=-1, stable=True)
+    return skey[..., :k], sidx[..., :k].to(torch.int32)
 
 
 def num_tiles(height: int, width: int) -> tuple[int, int]:
@@ -160,18 +163,33 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
     Args: mean2d (N,2) pixel coords, radius (N,) screen radius, depth (N,),
     ok (N,) bool, all detached. Returns indices in [0, N]; N is the
     "dummy" row.
+
+    With a leading render axis R (mean2d (R,N,2), the rest (R,N)) every
+    output has it too, and each render gets the lists it gets alone: the
+    depth bits come from one render's bin count, the depth range, the
+    key sort, the segments and the medium and big tiers' nearest k are
+    each render's own, and so are `overflow` and `overflow_max`. The two
+    host reads ask whether any render of the pass has a medium (a big).
+    A render with none of them then emits only sentinel keys, which sort
+    past every segment, and merges all-sentinel rows, which leave its
+    lists, counts and overflow as they are.
     """
+    if depth.dim() == 1:
+        lists = build_bin_lists(mean2d[None], radius[None], depth[None],
+                                ok[None], nrows, ncols, bin_h, bin_w,
+                                capacity, kr, kc)
+        return TileLists(*(x[0] for x in lists))
     dev = depth.device
-    n = depth.shape[0]
+    r, n = depth.shape
     t = nrows * ncols
     depth_bits = _depth_bits_for(t)
     depth_max = (1 << depth_bits) - 1
     i32 = torch.int32
 
-    cmin = torch.floor((mean2d[:, 0] - radius) / bin_w).to(i32)
-    cmax = torch.floor((mean2d[:, 0] + radius) / bin_w).to(i32)
-    rmin = torch.floor((mean2d[:, 1] - radius) / bin_h).to(i32)
-    rmax = torch.floor((mean2d[:, 1] + radius) / bin_h).to(i32)
+    cmin = torch.floor((mean2d[..., 0] - radius) / bin_w).to(i32)
+    cmax = torch.floor((mean2d[..., 0] + radius) / bin_w).to(i32)
+    rmin = torch.floor((mean2d[..., 1] - radius) / bin_h).to(i32)
+    rmax = torch.floor((mean2d[..., 1] + radius) / bin_h).to(i32)
 
     on_screen = (cmax >= 0) & (cmin <= ncols - 1) & (rmax >= 0) & (rmin <= nrows - 1)
     alive = ok & (radius > 0.0) & on_screen
@@ -180,8 +198,8 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
     rmin = rmin.clamp(0, nrows - 1)
     rmax = rmax.clamp(0, nrows - 1)
 
-    dq = _quantize_depth(depth, alive, depth_max)                       # (N,)
-    gid = torch.arange(n, dtype=i32, device=dev)
+    dq = _quantize_depth(depth, alive, depth_max)                     # (R,N)
+    gid = torch.arange(n, dtype=i32, device=dev).expand(r, n)
 
     small = alive & (cmax - cmin < kc) & (rmax - rmin < kr)
     big = alive & ~small
@@ -198,17 +216,18 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
 
     # --- medium tier: the TIER2_K nearest mediums, duplicate keys into the
     # same sort. Host read of n_med stands for the reference's lax.cond.
-    med_drop = torch.zeros((), dtype=i32, device=dev)
+    med_drop = torch.zeros((r,), dtype=i32, device=dev)
     if TIER2 > max(kr, kc):
         med = big & (cmax - cmin < TIER2) & (rmax - rmin < TIER2)
         big = big & ~med
-        n_med = torch.sum(med.to(i32))
+        n_med = torch.sum(med.to(i32), dim=-1)                          # (R,)
         k_med = min(TIER2_K, n)
-        if diagnostics.host_read("bin_n_med", n_med) > 0:
+        if diagnostics.host_read("bin_n_med", torch.amax(n_med)) > 0:
             med_dq, med_i = _nearest_k(torch.where(med, dq, depth_max + 1), k_med)
             mvalid = med_dq <= depth_max
-            rmin_m, rmax_m = rmin[med_i], rmax[med_i]
-            cmin_m, cmax_m = cmin[med_i], cmax[med_i]
+            at = med_i.long()
+            rmin_m, rmax_m = rmin.gather(-1, at), rmax.gather(-1, at)
+            cmin_m, cmax_m = cmin.gather(-1, at), cmax.gather(-1, at)
             for dr in range(TIER2):
                 for dc in range(TIER2):
                     need = (mvalid & (rmax_m - rmin_m >= dr)
@@ -220,61 +239,65 @@ def build_bin_lists(mean2d, radius, depth, ok, nrows: int, ncols: int,
         # beyond k_med the DEEPEST mediums are dropped whole (counted)
         med_drop = torch.clamp_min(n_med - k_med, 0).to(i32)
 
-    allk = torch.cat(keys)
-    skey, perm = torch.sort(allk, stable=True)
-    sval = torch.cat(vals)[perm]
-    nd = skey.shape[0]
+    allk = torch.cat(keys, dim=-1)
+    skey, perm = torch.sort(allk, dim=-1, stable=True)
+    sval = torch.cat(vals, dim=-1).gather(-1, perm)
+    nd = skey.shape[-1]
 
-    tile_base = torch.arange(t, dtype=i32, device=dev) << depth_bits
-    starts = torch.searchsorted(skey, tile_base).to(i32)                 # (T,)
+    tile_base = (torch.arange(t, dtype=i32, device=dev)
+                 << depth_bits).expand(r, t).contiguous()
+    starts = torch.searchsorted(skey, tile_base).to(i32)               # (R,T)
     ends = torch.searchsorted(skey, tile_base + (1 << depth_bits)).to(i32)
     seg_len = ends - starts
-    offs = starts[:, None] + torch.arange(capacity, dtype=i32, device=dev)[None]
-    inc = offs < ends[:, None]                                          # (T,C)
+    offs = starts[..., None] + torch.arange(capacity, dtype=i32, device=dev)
+    inc = offs < ends[..., None]                                      # (R,T,C)
     if WINDMA:
-        pairs = torch.stack([skey, sval], dim=1)                        # (ND,2)
-        rows = windowdma.gather_windows(pairs, starts, capacity)        # (T,C,2)
+        pairs = torch.stack([skey, sval], dim=-1)                     # (R,ND,2)
+        rows = per_render(lambda i: windowdma.gather_windows(
+            pairs[i], starts[i], capacity), r)                        # (R,T,C,2)
         wkey, wval = rows[..., 0], rows[..., 1]
     else:
-        at = offs.clamp_max(nd - 1).long()
-        wkey, wval = skey[at], sval[at]
+        at = offs.clamp_max(nd - 1).long().reshape(r, t * capacity)
+        wkey = skey.gather(-1, at).reshape(r, t, capacity)
+        wval = sval.gather(-1, at).reshape(r, t, capacity)
     small_dq = torch.where(inc, wkey & depth_max, depth_max + 1)
     small_idx = torch.where(inc, wval, n)
 
     # --- big path, only when a big gaussian exists (host read of n_big
     # stands for the reference's lax.cond)
-    n_big = diagnostics.host_read("bin_n_big", torch.sum(big.to(i32)))
-    if n_big == 0:
+    n_big = torch.sum(big.to(i32), dim=-1)                              # (R,)
+    if diagnostics.host_read("bin_n_big", torch.amax(n_big)) == 0:
         count = seg_len.clamp_max(capacity)
         drops = torch.clamp_min(seg_len - capacity, 0)
         return TileLists(idx=small_idx.to(i32), count=count.to(i32),
-                         overflow=(drops.sum() + med_drop).to(i32),
-                         overflow_max=drops.max().to(i32))
+                         overflow=(drops.sum(-1) + med_drop).to(i32),
+                         overflow_max=drops.amax(-1).to(i32))
 
     k_big = min(1024 if min(kr, kc) <= 2 else 256, n)
     big_dq_sel, big_i = _nearest_k(torch.where(big, dq, depth_max + 1), k_big)
-    bs_valid = big_dq_sel <= depth_max
+    bs_valid = big_dq_sel <= depth_max                                 # (R,Kb)
     tr = (torch.arange(t, dtype=i32, device=dev) // ncols)[:, None]
     tc = (torch.arange(t, dtype=i32, device=dev) % ncols)[:, None]
-    ovb = (bs_valid[None, :]
-           & (tc >= cmin[big_i][None, :]) & (tc <= cmax[big_i][None, :])
-           & (tr >= rmin[big_i][None, :]) & (tr <= rmax[big_i][None, :]))
-    big_dq_t = torch.where(ovb, big_dq_sel[None, :], depth_max + 1)     # (T,Kb)
-    big_idx = torch.where(ovb, big_i[None, :], n)
+    sel = lambda a: a.gather(-1, big_i.long())[:, None, :]  # noqa: E731
+    ovb = (bs_valid[:, None, :]
+           & (tc >= sel(cmin)) & (tc <= sel(cmax))
+           & (tr >= sel(rmin)) & (tr <= sel(rmax)))                     # (R,T,Kb)
+    big_dq_t = torch.where(ovb, big_dq_sel[:, None, :], depth_max + 1)
+    big_idx = torch.where(ovb, big_i[:, None, :], n)
 
     # --- merge by depth per bin (row sort over C + Kb columns)
-    mk = torch.cat([small_dq, big_dq_t], dim=1)
-    mv = torch.cat([small_idx, big_idx], dim=1)
-    mk, order = torch.sort(mk, dim=1, stable=True)
-    mv = torch.gather(mv, 1, order)
-    idx = mv[:, :capacity]
-    valid_slot = mk[:, :capacity] <= depth_max
-    count = torch.sum(valid_slot.to(i32), dim=1)
-    per_tile_total = seg_len + torch.sum(ovb.to(i32), dim=1)
+    mk = torch.cat([small_dq, big_dq_t], dim=-1)
+    mv = torch.cat([small_idx, big_idx], dim=-1)
+    mk, order = torch.sort(mk, dim=-1, stable=True)
+    mv = torch.gather(mv, -1, order)
+    idx = mv[..., :capacity]
+    valid_slot = mk[..., :capacity] <= depth_max
+    count = torch.sum(valid_slot.to(i32), dim=-1)
+    per_tile_total = seg_len + torch.sum(ovb.to(i32), dim=-1)
     drops = torch.clamp_min(per_tile_total - capacity, 0)
     # k_big truncation drops whole gaussians globally: counted in the total,
     # not in overflow_max (capacity escalation cannot fix it)
-    overflow = drops.sum() + max(n_big - k_big, 0) + med_drop
+    overflow = drops.sum(-1) + torch.clamp_min(n_big - k_big, 0) + med_drop
     return TileLists(idx=idx.to(i32), count=count.to(i32),
                      overflow=overflow.to(i32),
-                     overflow_max=drops.max().to(i32))
+                     overflow_max=drops.amax(-1).to(i32))

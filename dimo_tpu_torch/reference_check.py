@@ -432,13 +432,14 @@ def strip_lists(seen: list, given: tuple | None = None):
     orig = strips.build_strip_lists
 
     def spy(mean2d, radius, depth, ok, height, width, capacity):
+        # `render` bins its one job along a leading render axis of one
         own = orig(mean2d, radius, depth, ok, height, width, capacity)
-        seen.append((own, depth))
+        seen.append((strips.StripLists(*(x[0] for x in own)), depth[0]))
         if given is None:
             return own
         dev = own.idx.device
-        return own._replace(idx=torch.from_numpy(given[0]).to(dev),
-                            count=torch.from_numpy(given[1]).to(dev))
+        return own._replace(idx=torch.from_numpy(given[0]).to(dev)[None],
+                            count=torch.from_numpy(given[1]).to(dev)[None])
 
     strips.build_strip_lists = spy
     try:

@@ -2,8 +2,9 @@
 
 Counterpart of `dimo_tpu/train/step.py`, stages s1 and s2. The reference
 jits the whole step and maps the renders sequentially (`lax.map`); here
-the renders run in a Python loop in the same motion-major order, autograd
-records them, and one `backward` runs the compositor and LBS-gather
+this rank's renders run in one pass (`models/renderer.py::render_batch`)
+along a leading render axis in the same motion-major order, autograd
+records it, and one `backward` runs the compositor and LBS-gather
 backward kernels (K3, K4) for every render.
 
 Loss (the reference's `loss_fn`, same weights and gates):
@@ -74,7 +75,11 @@ import torch
 import torch.nn.functional as F
 
 from dimo_tpu_torch.models import gaussians as G
-from dimo_tpu_torch.models.renderer import find_knn, render
+# `render` here is the pass, `render_batch` (R jobs, (R, ...) outputs), not
+# `models.renderer.render`: the benchmark's fault test plants a fault in
+# every render of a step by patching `step.render`. To be renamed once
+# that test patches `step.render_batch`.
+from dimo_tpu_torch.models.renderer import find_knn, render_batch as render
 from dimo_tpu_torch.ops import arap as arap_mod
 from dimo_tpu_torch.ops import grad_conventions as gc
 from dimo_tpu_torch.ops import image_losses as L
@@ -280,17 +285,16 @@ def make_train_step(
         vae_rng = generator if lcfg.vae else None
         if vae_rng is not None:
             skip_vae_noise(params, vae_rng, first)
-        outs = [render(cfg, params, aux, batch["camera"][i], times[i], stage,
-                       lidx[i], width, height, bg, rng=vae_rng,
-                       knn_cache=knn_cache, capacity=capacity,
-                       mean2d_tap=tap if first + i == B - 1 else None)
-                for i in range(n_loc)]
+        outs = render(
+            cfg, params, aux, [batch["camera"][i] for i in range(n_loc)],
+            times, stage, lidx, width, height, bg, rng=vae_rng,
+            knn_cache=knn_cache, capacity=capacity,
+            mean2d_tap=tap if rows.stop == B else None)
         if vae_rng is not None:
             skip_vae_noise(params, vae_rng, B - rows.stop)
         diagnostics.RECORDER.cut("renders", mark)
-        stack = lambda k: torch.stack([o[k] for o in outs])  # noqa: E731
-        imgs = stack("image")                                 # (B, 3, h, w)
-        masks = stack("alpha")
+        imgs = outs["image"]                                  # (B, 3, h, w)
+        masks = outs["alpha"]
 
         gt_img = torch.as_tensor(batch["gt_image"], device=dev)
         gt_msk = torch.as_tensor(batch["gt_mask"], device=dev)
@@ -338,13 +342,13 @@ def make_train_step(
         smooth_l = torch.zeros((), device=dev)
         if lcfg.add_depth:
             smooth_l = torch.sum(motion_terms(
-                L.edge_aware_smoothness, nhwc(stack("depth")), i_nhwc))
+                L.edge_aware_smoothness, nhwc(outs["depth"]), i_nhwc))
             gate = float(step > lcfg.depth_reg_start_iter)
             loss = loss + gate * lcfg.lambda_smooth * smooth_l
         bilat_l = torch.zeros((), device=dev)
         if lcfg.add_normal:
             bilat_l = torch.sum(motion_terms(
-                L.bilateral_normal_smoothness, nhwc(stack("normal")), i_nhwc))
+                L.bilateral_normal_smoothness, nhwc(outs["normal"]), i_nhwc))
             gate = float(step > lcfg.normal_reg_start_iter)
             loss = loss + gate * lcfg.lambda_bilateral * bilat_l
 
@@ -376,8 +380,7 @@ def make_train_step(
         if use_guidance and stage >= "s2" and lcfg.add_ga:
             c_valid = aux.c_active
             guid = torch.as_tensor(batch["guidance"], device=dev).detach()
-            for o, g in zip(outs, guid):
-                c = o["cpts_t"]
+            for c, g in zip(outs["cpts_t"], guid):
                 if lcfg.ga_chamfer:
                     ga_l = ga_l + neighbors.chamfer_forward(c, g,
                                                             x_valid=c_valid)
@@ -394,8 +397,8 @@ def make_train_step(
             "ssim_loss": ssim_losses, "lpips": lp,
             "mask_loss": mask_losses, "kl": kl, "arap": arap_l,
             "ga": ga_l, "smooth": smooth_l, "bilateral": bilat_l,
-            "overflow": torch.sum(stack("overflow")),
-            "overflow_max": torch.max(stack("overflow_max")),
+            "overflow": torch.sum(outs["overflow"]),
+            "overflow_max": torch.max(outs["overflow_max"]),
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
@@ -403,8 +406,8 @@ def make_train_step(
         for k in ("ssim_loss", "lpips", "mask_loss"):
             metrics[k] = torch.mean(metrics[k])
         metrics["psnr"] = L.psnr(metrics["mse"])
-        vis_aux = {"radii": outs[-1]["radii"].detach(),
-                   "visibility": outs[-1]["visibility_filter"],
+        vis_aux = {"radii": outs["radii"][-1].detach(),
+                   "visibility": outs["visibility_filter"][-1],
                    "debug_render": imgs[0].detach(), "debug_gt": gt[0]}
         diagnostics.RECORDER.cut("losses", mark)
         return loss, (metrics, vis_aux)

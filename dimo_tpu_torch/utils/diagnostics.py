@@ -8,8 +8,9 @@ with the Trainer step it belongs to, its parent (the innermost open
 span), its host start and end (`time.perf_counter`) and, once the
 process has used a card, a CUDA event at each end on the current stream:
 the device clock that CUDA-event marks and a profiler's trace share.
-Each place where the host waits for the card's queue to drain is a span
-named `host_read` with its `site`: a read of a device value,
+`count(name, n)` adds to a counter of the open step (the render passes
+and the jobs they hold). Each place where the host waits for the card's
+queue to drain is a span named `host_read` with its `site`: a read of a device value,
 `host_read(site, x)`, which returns what the read returns, or a block,
 `host_wait(site)`, such as a copy from pageable host memory to the card,
 which the runtime ends in a stream synchronize. The spans of the last
@@ -45,12 +46,15 @@ KEEP_STEPS = 256          # groups (steps) whose spans stay in memory
 
 class Span:
     """One recorded interval. `t0`, `t1`: host seconds; `e0`, `e1`: CUDA
-    events at its ends, or None without a card."""
-    __slots__ = ("name", "site", "step", "parent", "t0", "t1", "e0", "e1")
+    events at its ends, or None without a card; `counts`: on a group's
+    first span, the group's counters ({name: n}, or None)."""
+    __slots__ = ("name", "site", "step", "parent", "t0", "t1", "e0", "e1",
+                 "counts")
 
     def __init__(self, name, site, step, parent, t0, e0):
         self.name, self.site, self.step, self.parent = name, site, step, parent
         self.t0, self.t1, self.e0, self.e1 = t0, None, e0, None
+        self.counts = None
 
     @property
     def host_ms(self) -> float:
@@ -148,6 +152,15 @@ class Recorder:
         finally:
             self.close(s)
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Adds n to counter `name` of the group of the open spans (the
+        step's); nothing when off or with no span open."""
+        if self.on and self._stack:
+            root = self._stack[0]
+            if root.counts is None:
+                root.counts = {}
+            root.counts[name] = root.counts.get(name, 0) + n
+
     def cut(self, name: str | None, mark=None, last: bool = False) -> None:
         """Ends the open segment of the train step as span `name` and,
         unless `last`, opens the next one; then calls `mark(name)`.
@@ -210,8 +223,9 @@ def step_totals(n: int) -> list | None:
     "host_ms" (the `step` span), "host_reads", "host_read_ms",
     "packer_wait_ms", "host_busy_ms" (the step's time outside both),
     "sites" ({site: reads}), "device_ms" ({span name: device ms of the
-    step's spans of that name, summed}, with a card)}; None when fewer
-    steps are kept."""
+    step's spans of that name, summed}, with a card), "render_jobs" and
+    "render_passes" (the jobs rendered and the passes that held them)};
+    None when fewer steps are kept."""
     steps = RECORDER.completed_steps(n) if n else None
     if steps is None:
         return None
@@ -230,11 +244,14 @@ def step_totals(n: int) -> list | None:
             if d is not None:
                 dev[s.name] = dev.get(s.name, 0.0) + d
         read_ms = sum(s.host_ms for s in reads)
+        counts = root.counts or {}
         out.append({"step": root.step, "host_ms": root.host_ms,
                     "host_reads": len(reads), "host_read_ms": read_ms,
                     "packer_wait_ms": wait,
                     "host_busy_ms": root.host_ms - read_ms - wait,
-                    "sites": sites, "device_ms": dev})
+                    "sites": sites, "device_ms": dev,
+                    "render_jobs": counts.get("render_jobs", 0),
+                    "render_passes": counts.get("render_passes", 0)})
     return out
 
 

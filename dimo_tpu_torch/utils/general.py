@@ -15,6 +15,15 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
          cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
 
 
+def per_render(fn, r: int) -> torch.Tensor:
+    """fn(0), ..., fn(r - 1) stacked along a new leading render axis: the
+    pass's kernels that launch once a render. One render is a view of its
+    result, not a copy."""
+    if r == 1:
+        return fn(0)[None]
+    return torch.stack([fn(i) for i in range(r)])
+
+
 def cudnn_tf32(allow: bool):
     """A context in which cuDNN's convolutions run with TF32 allowed or
     not, and by deterministic algorithms only (cuDNN's default pick for a

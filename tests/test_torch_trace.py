@@ -74,18 +74,20 @@ def check_tree(spans):
 def expected_sites(stage: str, renders: int, motions: int, step: int,
                    sampled: bool, t_samples: int = 8) -> dict:
     """{site: host_read spans} of one step on the CPU (a card adds the
-    packer's `packer_slot` and, with the VGG LPIPS, two `lpips_norm`)."""
+    packer's `packer_slot` and, with the VGG LPIPS, two `lpips_norm`).
+    The step's r renders are one pass (`render_batch`), whose sites count
+    once however many jobs it holds."""
     r, m = renders, motions
-    want = {"bin_n_med": r, "bin_n_big": r, "grad_guard": 1,
-            "camera": 3 * r, "coef_dummy": r, "timenet_time": r,
-            "posenc_freqs": 2 * r + 2 * m,        # renders' and ARAP's TimeNet
+    want = {"bin_n_med": 1, "bin_n_big": 1, "grad_guard": 1,
+            "camera": 3, "timenet_time": 1,
+            "posenc_freqs": 2 + 2 * m,           # the pass's and ARAP's TimeNet
             "ssim_window": m, "mse_w": 1, "arap_times": 1, "adam_betas": 2}
     # the kinks' bounds: projection's two clips and a maximum, the image's
-    # clip (7 a render); ARAP's neighbour distances, a time sample of each
+    # clip (7 a pass); ARAP's neighbour distances, a time sample of each
     # motion (the shared graph) or a motion (sampled nodes); in s2 the
     # chamfer's distances a render and the KNN's
     arap = m if sampled else t_samples * m
-    want["kink_bound"] = 7 * r + arap + (r + 1 if stage == "s2" else 0)
+    want["kink_bound"] = 7 + arap + (r + 1 if stage == "s2" else 0)
     if stage == "s1":
         want["mean2d_tap"] = 1
     if sampled:
@@ -119,6 +121,7 @@ def test_step_spans_and_reads_by_site(data, tmp_path, recorder, stage, kw):
         assert tot["host_busy_ms"] + tot["host_read_ms"] \
             + tot["packer_wait_ms"] == pytest.approx(tot["host_ms"])
         assert tot["packer_wait_ms"] > 0 and tot["device_ms"] == {}
+        assert (tot["render_jobs"], tot["render_passes"]) == (2, 1)
         # each read sits where its code runs
         parents = {}
         for s in spans:
@@ -131,6 +134,26 @@ def test_step_spans_and_reads_by_site(data, tmp_path, recorder, stage, kw):
         assert parents["adam_betas"] == {"adam"}
         if sampled:
             assert parents["arap_sample"] == {"losses"}
+
+
+@pytest.mark.parametrize("batch_size,jobs", [(1, 2), (2, 8)])
+def test_render_counters_read_the_jobs_of_the_steps_one_pass(
+        data, tmp_path, recorder, batch_size, jobs):
+    """`render_jobs` / `render_passes` of a step read r / 1 for the step's
+    r = frames x views x motions jobs (batch_size b: b x b x 2 here); with
+    nothing open the counters add nothing, and off they record nothing."""
+    tr = trainer(data, "s2", tmp_path, batch_size=batch_size)
+    tr.train_step_once(lpips_fn)
+    assert recorder.completed_steps(1) is None
+    with diagnostics.tracing():
+        recorder.count("render_jobs", 5)          # no span open: dropped
+        tr.train_step_once(lpips_fn)
+    (tot,) = diagnostics.step_totals(1)
+    assert (tot["render_jobs"], tot["render_passes"]) == (jobs, 1)
+    with diagnostics.tracing(), diagnostics.span("step", step=0):
+        pass
+    (tot,) = diagnostics.step_totals(1)
+    assert (tot["render_jobs"], tot["render_passes"]) == (0, 0)
 
 
 def test_a_marked_step_turns_the_recorder_on_for_good(data, tmp_path,

@@ -280,14 +280,19 @@ def batch_mismatches(rec: dict, ref_rows: list, s: dict, opt) -> int:
     return bad
 
 
-def step_flops(cfg: dict, opt, work: list, lpips_on: bool) -> float:
-    """float32 operations of one train step: LPIPS, the compositor both
-    ways, TimeNet forward and backward (renders and ARAP), the KNN."""
+def step_images(cfg: dict, opt) -> tuple:
+    """(motions, renders, resolution) of a train step after the first."""
     bs = int(opt.batch_size)
     n_m = min(2 * bs, int(cfg["scene"]["num_motions"]))
     b = n_m * min(bs, int(opt.num_views)) * min(bs, int(opt.num_frames))
     first = int(cfg["start_step"]) + 1
-    res = 128 if first < 300 else (256 if first < 450 else 512)
+    return n_m, b, 128 if first < 300 else (256 if first < 450 else 512)
+
+
+def step_flops(cfg: dict, opt, work: list, lpips_on: bool) -> float:
+    """float32 operations of one train step: LPIPS, the compositor both
+    ways, TimeNet forward and backward (renders and ARAP), the KNN."""
+    n_m, b, res = step_images(cfg, opt)
     n_g = int(cfg["scene"]["num_gaussians"])
     n_c = int(cfg["num_cpts"]) if cfg["stage"] == "s2" else n_g
     lat = int(opt.latent_code_dim)
@@ -344,6 +349,12 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         record["work"] = {"k3": [w["k3"] for w in ref["work"]],
                           "step_flops": step_flops(cfg, opt, ref["work"],
                                                    s["lpips_on"])}
+        if s["lpips_on"]:
+            # LPIPS's forward, both towers, over the profiled steps: two
+            # thirds of a step's LPIPS operations (no input gradient)
+            _, b, res = step_images(cfg, opt)
+            record["work"]["lpips_flops"] = len(PROFILED) * 2.0 / 3.0 \
+                * vgg16.lpips_step_flops(b, res, res)
     return {"record": record, "correct": correct, "checks": rows,
             "numbers": {k: v for k, (v, _) in numbers.items()},
             "attempted": win["steps"], "failed": 0, "peak_bytes": peak}

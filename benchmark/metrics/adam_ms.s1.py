@@ -1,0 +1,5 @@
+"""`adam_ms.train`'s reading, in the cells where `train_step_ms` is reported
+per layer (`train_step_ms.s1`)."""
+from harness.spec import load_module
+
+read = load_module("metrics", "adam_ms.train").read

@@ -37,15 +37,19 @@ def test_a_stall_moves_the_train_step_time():
 @pytest.mark.parametrize("name", [
     "train_step_ms", "batch_ms.train", "render_ms.train", "lpips_ms.train",
     "backward_ms.train", "device_busy_ms.train", "idle_pct.train",
-    "profiled_step_ms.train", "mfu_pct.train"])
+    "profiled_step_ms.train", "mfu_pct.train", "losses_ms.train",
+    "adam_ms.train", "lpips_roofline_pct.train"])
 def test_a_per_layer_copy_reads_as_its_original(name):
     rec = train_window([0.5] * 19 + [1.5])
     rec["train"].update(batch_s=[0.01, 0.02], segments=[
-        {"renders": 0.2, "lpips": 0.1, "backward": 0.3},
-        {"renders": 0.4, "lpips": 0.3, "backward": 0.5}])
+        {"renders": 0.2, "lpips": 0.1, "losses": 0.02, "backward": 0.3,
+         "adam": 0.004},
+        {"renders": 0.4, "lpips": 0.3, "losses": 0.03, "backward": 0.5,
+         "adam": 0.006}])
     rec["trace"] = {"busy_s": 0.045, "window_s": 0.3, "host_s": 0.3,
-                    "step_ms": 150.0, "steps": 2}
-    rec["work"] = {"step_flops": 2e12}
+                    "step_ms": 150.0, "steps": 2,
+                    "by_segment": {"lpips": {"busy_s": 0.02, "kernels": {}}}}
+    rec["work"] = {"step_flops": 2e12, "lpips_flops": 5e11}
     copy = (name[:-len(".train")] if name.endswith(".train") else name) + ".s1"
     assert metric(name, rec) is not None
     assert metric(copy, rec) == metric(name, rec)

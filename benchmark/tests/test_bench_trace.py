@@ -47,12 +47,32 @@ def test_a_traced_run_reads_all_eight(recorder, tmp_path):
     assert got["host_busy_ms.train"] + got["host_read_ms.train"] \
         + got["packer_wait_ms.train"] == pytest.approx(sum(step_ms) / n)
     assert sum(step_ms) <= 1e3 * sum(rec["train"]["step_s"])
-    # 2 renders (1 frame x 1 view x 2 motions) and the VGG's LPIPS: the
-    # sites of tests/test_torch_trace.py's count, and `lpips_norm`'s two
-    assert got["host_reads.train"] == 62 + 2
+    # 2 renders (1 frame x 1 view x 2 motions) in one pass and the VGG's
+    # LPIPS: the sites of tests/test_torch_trace.py's `expected_sites`,
+    # and `lpips_norm`'s two
+    assert got["host_reads.train"] == 45 + 2
     # the per-layer line of the traced run carries them
     line = spec_mod.read_metrics(cell["per_layer"], rec)
     assert {f"{m}.train" for m in NEW} <= set(line)
+
+
+def test_a_traced_run_reads_the_losses_and_adam_segments(recorder,
+                                                        tmp_path):
+    """`losses_ms` and `adam_ms` read floats from the window's marks; on
+    the CPU no device is traced, so `lpips_roofline_pct` finds nothing."""
+    cell = tiny_cell("s2-train-lpips", LOOSE)
+    drv = spec_mod.load_module("drivers", "train_loop")
+    rec = drv.run(cell, 2**31 + 13, 0.5, True, "cpu", str(tmp_path),
+                  time.perf_counter())["record"]
+    for s in ("train", "s1"):
+        for m in ("losses_ms", "adam_ms"):
+            v = spec_mod.load_module("metrics", f"{m}.{s}").read(rec)
+            assert isinstance(v, float) and v > 0, (m, v)
+        assert spec_mod.load_module(
+            "metrics", f"lpips_roofline_pct.{s}").read(rec) is None
+    assert rec["work"]["lpips_flops"] > 0
+    line = spec_mod.read_metrics(cell["per_layer"], rec)
+    assert {"losses_ms.train", "adam_ms.train"} <= set(line)
 
 
 def test_without_the_recorder_the_readers_find_nothing(recorder,

@@ -36,9 +36,14 @@ LPIPS call computed twice differed by up to 2.8e-14 under cuDNN's default
 pick (H100, `chip_smoke.py --phase determinism`), and is the same bits
 under the restriction. `LPIPS(tf32=True)`
 runs both passes in TF32 (the comparison above).
+
+The scaling layer's two constants are copied to the device once per call
+of `lpips`, or once per block of `shared_constants()`, in which a train
+step calls it once a chunk of whole motions (`train/step.py`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -62,6 +67,8 @@ TAP_CHANNELS = (64, 128, 256, 512, 512)
 
 _SHIFT = np.array([-.030, -.088, -.188], np.float32)
 _SCALE = np.array([.458, .448, .450], np.float32)
+# {device: (shift, scale)} inside `shared_constants`, None outside it
+_SHARED: dict | None = None
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -111,15 +118,36 @@ def _unit_normalize(f, eps=1e-10):
     return f / (n + eps)
 
 
-def lpips(params: dict, img1: torch.Tensor, img2: torch.Tensor,
-          tf32: bool = False) -> torch.Tensor:
-    """img1/img2: (B, 3, H, W) in [0, 1] (fed unnormalised, like the
-    reference). Returns (B,) distances."""
-    dev = img1.device
+@contextlib.contextmanager
+def shared_constants():
+    """Every `lpips` call inside the block uses one copy of the scaling
+    layer's constants on its device, made by the first call there."""
+    global _SHARED
+    was, _SHARED = _SHARED, {}
+    try:
+        yield
+    finally:
+        _SHARED = was
+
+
+def _constants(dev: torch.device) -> tuple:
+    """(shift, scale), (1, 3, 1, 1) each on `dev`."""
+    if _SHARED is not None and dev in _SHARED:
+        return _SHARED[dev]
     with diagnostics.host_wait("lpips_norm"):
         shift = torch.as_tensor(_SHIFT, device=dev)[None, :, None, None]
     with diagnostics.host_wait("lpips_norm"):
         scale = torch.as_tensor(_SCALE, device=dev)[None, :, None, None]
+    if _SHARED is not None:
+        _SHARED[dev] = (shift, scale)
+    return shift, scale
+
+
+def lpips(params: dict, img1: torch.Tensor, img2: torch.Tensor,
+          tf32: bool = False) -> torch.Tensor:
+    """img1/img2: (B, 3, H, W) in [0, 1] (fed unnormalised, like the
+    reference). Returns (B,) distances."""
+    shift, scale = _constants(img1.device)
     f1 = vgg_features(params, (img1 - shift) / scale, tf32)
     f2 = vgg_features(params, (img2 - shift) / scale, tf32)
     total = 0.0

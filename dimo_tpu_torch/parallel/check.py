@@ -20,7 +20,10 @@ compares.
   * `cli_worker`: one rank of `torchrun ... main_train_dimo_torch.py
     data_parallel=N`: the group joined from the environment torchrun
     sets, the train CLI's body, then the fps harness sharded over the
-    same group.
+    same group;
+  * `lpips_chunks_worker`: a Trainer's step at data_parallel=N, LPIPS in
+    chunks of whole motions (the step's), against LPIPS over the rank's
+    whole batch in one call (`lpips_step_pair`).
 """
 from __future__ import annotations
 
@@ -407,5 +410,119 @@ def cli_worker(rank: int, world: int, port: int, out_dir: str, kw: dict,
     tr.opt["spatial_parallel"] = world
     out["fps"] = test_modes.run_test_fps(tr, rounds=2, size=kw["fps_size"])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    mesh_mod.barrier(tr.mesh)
+    dist.destroy_process_group()
+
+
+def lpips_step_pair(tr, lpips_fn, arap_times, seed: int = 0) -> tuple:
+    """(chunked, whole) of a Trainer's next batch from its state, each
+    {"loss", "lpips", "grads"}: this rank's loss, the metrics' LPIPS and
+    each leaf's gradient (and s1's `mean2d_tap`'s, as "tap") before the
+    ranks' sum. "chunked" is the step's `loss_fn` (LPIPS in chunks of
+    whole motions); "whole" the same step without LPIPS plus LPIPS over
+    all of this rank's renders in one call and one backward. Both from
+    one batch and a generator seeded with `seed`; no update."""
+    from dimo_tpu_torch.train import optim
+    from dimo_tpu_torch.train import step as step_mod
+    from dimo_tpu_torch.train.loop import (loss_config_from_opt,
+                                           render_resolution_for_step)
+    step = tr.step + 1
+    res = render_resolution_for_step(step)
+    batch, (n_m, n_v, n_f) = tr.sample_batch()
+    params, aux = tr.state.params, tr.state.aux
+    leaves = optim.named_leaves(params)
+    lcfg = loss_config_from_opt(tr.opt, tr.stage)
+
+    def run(fn):
+        tap = (torch.zeros((params.xyz.shape[0], 2), device=params.xyz.device,
+                           requires_grad=True)
+               if tr.stage == "s1" else None)
+        seen = []
+        orig = step_mod.render
+
+        def render(*a, **k):
+            seen.append(orig(*a, **k))
+            return seen[-1]
+        step_mod.render = render
+        try:
+            loss, (metrics, _) = fn.loss_fn(
+                params, aux, batch, step, arap_times,
+                torch.Generator().manual_seed(seed), tap=tap)
+        finally:
+            step_mod.render = orig
+        return loss, metrics, seen[0]["image"], tap
+
+    def grads(loss, tap):
+        for v in leaves.values():
+            v.grad = None
+        loss.backward()
+        out = {k: (v.grad.clone() if v.grad is not None
+                   else torch.zeros_like(v)) for k, v in leaves.items()}
+        if tap is not None:       # the batch's last render carries it
+            out["tap"] = (tap.grad.clone() if tap.grad is not None
+                          else torch.zeros_like(tap))
+        for v in leaves.values():
+            v.grad = None
+        return out
+
+    def make(fn_lpips):
+        return step_mod.make_train_step(
+            tr.mcfg, lcfg, tr.stage, res, res, n_m, n_v, n_f,
+            capacity=tr.tile_capacity, lpips_fn=fn_lpips,
+            use_guidance=tr.stage >= "s2", mesh=tr.mesh)
+
+    loss, metrics, _, tap = run(make(lpips_fn))
+    chunked = {"loss": float(loss.detach()), "lpips": float(metrics["lpips"]),
+               "grads": grads(loss, tap)}
+    loss, metrics, imgs, tap = run(make(None))
+    gt = (torch.as_tensor(batch["gt_image"]).float() / 255.0
+          ).permute(0, 3, 1, 2)
+    if gt.shape[-1] != res:
+        gt = step_mod.resize_linear(gt, res, res)
+    dist_ = lpips_fn(imgs, gt)
+    per, b = n_v * n_f, n_m * n_v * n_f
+    rows = tr.mesh.rows(b) if tr.mesh is not None else slice(0, b)
+    lp = []
+    for m in range(n_m):
+        lo, hi = max(m * per, rows.start), min((m + 1) * per, rows.stop)
+        if hi > lo:
+            lp.append(torch.mean(dist_[lo - rows.start:hi - rows.start])
+                      * ((hi - lo) / per))
+    lp = torch.stack(lp)
+    loss = loss + lcfg.lambda_lpips * torch.sum(lp)
+    whole = {"loss": float(loss.detach()),
+             "lpips": float(torch.sum(lp.detach())) / n_m,
+             "grads": grads(loss, tap)}
+    return chunked, whole
+
+
+def lpips_chunks_worker(rank: int, world: int, init_file: str, out_dir: str,
+                        kw: dict, timeout_s: float = 120.0) -> None:
+    """`lpips_step_pair` of a Trainer at data_parallel=world on its first
+    s1 batch, with the seeded random VGG LPIPS; writes each rank's
+    losses and gradients to out_dir/rank{r}.npz ("chunked.", "whole.").
+
+    kw: "data" (make_synthetic_videos' keyword arguments), "opt"
+    (tiny_synthetic_opt's), "arap_times", "lpips_pixels" (the step's
+    `LPIPS_PIXELS` in this process)."""
+    from dimo_tpu_torch.io.synthetic import make_synthetic_videos
+    from dimo_tpu_torch.models.lpips import random_init_lpips
+    from dimo_tpu_torch.presets import tiny_synthetic_opt
+    from dimo_tpu_torch.train import step as step_mod
+    from dimo_tpu_torch.train.loop import Trainer
+    init_rank(rank, world, init_file, timeout_s)
+    step_mod.LPIPS_PIXELS = kw["lpips_pixels"]
+    data = make_synthetic_videos(device="cpu", **kw["data"])
+    tr = Trainer(tiny_synthetic_opt(data_parallel=world, **kw["opt"]),
+                 *data, device="cpu")
+    tr.prepare_train_s1()
+    pair = lpips_step_pair(tr, random_init_lpips(0, "cpu"),
+                           np.asarray(kw["arap_times"], np.float32))
+    arrays = {}
+    for name, got in zip(("chunked", "whole"), pair):
+        arrays[f"{name}.loss"] = np.float64(got["loss"])
+        arrays.update({f"{name}.g.{k}": v.numpy()
+                       for k, v in got["grads"].items()})
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     mesh_mod.barrier(tr.mesh)
     dist.destroy_process_group()

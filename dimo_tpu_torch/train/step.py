@@ -12,11 +12,14 @@ Loss (the reference's `loss_fn`, same weights and gates):
   * with an `lpips_fn`, `lambda_lpips` times the sum over motions of the
     mean LPIPS distance of the motion's renders to their GT. The
     reference maps over the motions (`lax.map`, with a `jax.checkpoint`
-    that bounds memory on 16 GB of HBM and changes no value); here one
-    call takes all of this rank's renders, since the distances are per
-    image, and cuDNN's deterministic backward (`models/lpips.py`) costs
-    less on the whole batch than on each motion's (`chip_smoke.py
-    --phase timing`); the GT tower records no gradient;
+    that bounds memory on 16 GB of HBM and changes no value); here LPIPS
+    runs on chunks of whole motions (this rank's renders of them) of at
+    most `LPIPS_PIXELS` pixels, and each chunk's forward and input VJP
+    run together on detached renders, so the peak holds one chunk of VGG
+    activations and not the batch's (at the published batch_size 4, 32
+    renders of 128 at 512^2). The summed image gradient joins the step's
+    one backward through the other losses and the render pass
+    (`_InputGrad`); the GT tower records no gradient;
   * edge-aware depth and bilateral normal smoothness, gated by
     step > depth/normal_reg_start_iter;
   * ARAP over `arap_t_samples` TimeNet times: in s2 on the control
@@ -75,6 +78,7 @@ import torch
 import torch.nn.functional as F
 
 from dimo_tpu_torch.models import gaussians as G
+from dimo_tpu_torch.models import lpips as lpips_mod
 # `render` here is the pass, `render_batch` (R jobs, (R, ...) outputs), not
 # `models.renderer.render`: the benchmark's fault test plants a fault in
 # every render of a step by patching `step.render`. To be renamed once
@@ -87,6 +91,30 @@ from dimo_tpu_torch.ops import neighbors
 from dimo_tpu_torch.parallel import mesh as mesh_mod
 from dimo_tpu_torch.train import optim
 from dimo_tpu_torch.utils import diagnostics, schedules
+
+# LPIPS's pixels a call (32 renders at 512^2): whole motions are chunked
+# under it. On an H100 a chunk's VGG forward and input VJP hold ~22 GiB
+# at 32 renders and take 14.3 ms a render, as at 54 (14.3); one motion a
+# call would take 16.3 ms a render at 16 renders, 19.4 at 9, 23.1 at 4.
+LPIPS_PIXELS = 32 * 512 * 512
+
+
+class _InputGrad(torch.autograd.Function):
+    """A zero whose backward hands `g` to `x`: the LPIPS term's gradient
+    with respect to the renders, taken chunk by chunk in the forward,
+    joins the one backward through the rest of the loss and the render
+    pass, as `torch.autograd.backward((loss_rest, imgs), (None, g))`
+    would, and a caller's `loss.backward()` stays the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.save_for_backward(g)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, dz):
+        (g,) = ctx.saved_tensors
+        return g * dz, None
 
 
 @dataclasses.dataclass
@@ -228,12 +256,15 @@ def make_train_step(
     in place and returns (state, metrics). `arap_times` (arap_t_samples,)
     replaces the times drawn from `state.rng`; `mark(name)`, if given, is
     called after the renders, the LPIPS term (with an `lpips_fn`; its
-    interval also holds the GT's conversion), the other losses, the
-    backward and the update (e.g. to record CUDA events). With
-    `utils/diagnostics.py`'s recorder on, the same five intervals, from
-    the step's start, are spans of those names (`renders`, `lpips`,
-    `losses`, `backward`, `adam`); a step called with a `mark` turns the
-    recorder on for the rest of the process, since its caller traces it.
+    interval also holds the GT's conversion and LPIPS's input gradient),
+    the other losses, the backward and the update (e.g. to record CUDA
+    events). With `utils/diagnostics.py`'s recorder on, the same five
+    intervals, from the step's start, are spans of those names
+    (`renders`, `lpips`, `losses`, `backward`, `adam`), each LPIPS call
+    a span `lpips_chunk` inside `lpips`, counted by the counters
+    `lpips_chunks` and `lpips_chunk_images`; a step called with a `mark`
+    turns the recorder on for the rest of the process, since its caller
+    traces it.
     `lpips_fn(img1, img2)` -> (b,) distances of (b, 3, h, w) images.
     `train_step.loss_fn` is the loss alone, of this rank's jobs under a
     `mesh` (the batch is then this rank's share, see the module
@@ -250,18 +281,56 @@ def make_train_step(
               for m in range(n_motions)
               for lo, hi in [(max(m * per, first),
                               min((m + 1) * per, rows.stop))] if hi > lo]
+    # LPIPS's calls: runs of consecutive `chunks` entries of at most
+    # LPIPS_PIXELS pixels together (an entry over it is a call alone)
+    cap = max(1, LPIPS_PIXELS // (width * height))
+    lpips_calls = []
+    for c in chunks:
+        if lpips_calls and c[2] - lpips_calls[-1][0][1] <= cap:
+            lpips_calls[-1].append(c)
+        else:
+            lpips_calls.append([c])
+
+    def by_motion(vals):
+        """(n_motions,) of one value per entry of `chunks`; 0 for a motion
+        with no job here."""
+        if len(chunks) == n_motions:
+            return torch.stack(vals)
+        out = [torch.zeros((), device=vals[0].device)] * n_motions
+        for (m, *_), v in zip(chunks, vals):
+            out[m] = v
+        return torch.stack(out)
 
     def motion_terms(fn, *xs):
         """(n_motions,) of fn over each motion's local images times their
         share of the motion; 0 for a motion with no job here."""
-        vals = [fn(*(x[lo:hi] for x in xs)) * share
-                for _, lo, hi, share in chunks]
-        if len(chunks) == n_motions:
-            return torch.stack(vals)
-        out = [torch.zeros((), device=xs[0].device)] * n_motions
-        for (m, *_), v in zip(chunks, vals):
-            out[m] = v
-        return torch.stack(out)
+        return by_motion([fn(*(x[lo:hi] for x in xs)) * share
+                          for _, lo, hi, share in chunks])
+
+    def lpips_by_motion(imgs, gt):
+        """The LPIPS terms, (n_motions,) as `motion_terms` gives them but
+        detached, and `lambda_lpips` times their gradient with respect to
+        `imgs`, one call of `lpips_calls` at a time: its VGG forward and
+        input VJP together on the detached renders, so that one call's
+        activations are held at a time."""
+        grad = torch.empty_like(imgs)
+        vals = []
+        with lpips_mod.shared_constants():
+            for call in lpips_calls:
+                lo, hi = call[0][1], call[-1][2]
+                with diagnostics.span("lpips_chunk"):
+                    diagnostics.RECORDER.count("lpips_chunks")
+                    diagnostics.RECORDER.count("lpips_chunk_images", hi - lo)
+                    x = imgs[lo:hi].detach().requires_grad_()
+                    with torch.enable_grad():
+                        d = lpips_fn(x, gt[lo:hi])
+                        v = [torch.mean(d[a - lo:b - lo]) * share
+                             for _, a, b, share in call]
+                        (g,) = torch.autograd.grad(
+                            lcfg.lambda_lpips * sum(v), x)
+                    grad[lo:hi] = g
+                    vals += [t.detach() for t in v]
+        return by_motion(vals), grad
 
     def skip_vae_noise(params, generator, n):
         """Draw and drop the VAE noise of n jobs rendered by other ranks."""
@@ -305,7 +374,7 @@ def make_train_step(
         if tuple(gt_m.shape[2:]) != (height, width):
             gt_m = resize_linear(gt_m, height, width)
         if lpips_fn is not None:
-            lp = motion_terms(torch.mean, lpips_fn(imgs, gt))
+            lp, lp_grad = lpips_by_motion(imgs, gt)
             diagnostics.RECORDER.cut("lpips", mark)
         else:
             lp = torch.zeros((n_motions,), device=dev)
@@ -321,7 +390,8 @@ def make_train_step(
                                    nhwc(imgs), nhwc(gt))
         loss = loss + lcfg.lambda_ssim * torch.sum(ssim_losses)
         if lpips_fn is not None:
-            loss = loss + lcfg.lambda_lpips * torch.sum(lp)
+            loss = (loss + lcfg.lambda_lpips * torch.sum(lp)
+                    + _InputGrad.apply(imgs, lp_grad))
         mask_losses = motion_terms(lambda a, b: torch.mean((a - b) ** 2),
                                    masks, gt_m)
         loss = loss + lcfg.lambda_mask * torch.sum(mask_losses)

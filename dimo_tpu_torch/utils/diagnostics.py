@@ -9,8 +9,9 @@ span), its host start and end (`time.perf_counter`) and, once the
 process has used a card, a CUDA event at each end on the current stream:
 the device clock that CUDA-event marks and a profiler's trace share.
 `count(name, n)` adds to a counter of the open step (the render passes
-and the jobs they hold). Each place where the host waits for the card's
-queue to drain is a span named `host_read` with its `site`: a read of a device value,
+and the jobs they hold, the LPIPS chunks and their images). Each place
+where the host waits for the card's queue to drain is a span named
+`host_read` with its `site`: a read of a device value,
 `host_read(site, x)`, which returns what the read returns, or a block,
 `host_wait(site)`, such as a copy from pageable host memory to the card,
 which the runtime ends in a stream synchronize. The spans of the last
@@ -224,8 +225,10 @@ def step_totals(n: int) -> list | None:
     "packer_wait_ms", "host_busy_ms" (the step's time outside both),
     "sites" ({site: reads}), "device_ms" ({span name: device ms of the
     step's spans of that name, summed}, with a card), "render_jobs" and
-    "render_passes" (the jobs rendered and the passes that held them)};
-    None when fewer steps are kept."""
+    "render_passes" (the jobs rendered and the passes that held them),
+    "lpips_chunks" and "lpips_chunk_images" (LPIPS's calls, whole
+    motions each, and the images they held)}; None when fewer steps are
+    kept."""
     steps = RECORDER.completed_steps(n) if n else None
     if steps is None:
         return None
@@ -251,7 +254,10 @@ def step_totals(n: int) -> list | None:
                     "host_busy_ms": root.host_ms - read_ms - wait,
                     "sites": sites, "device_ms": dev,
                     "render_jobs": counts.get("render_jobs", 0),
-                    "render_passes": counts.get("render_passes", 0)})
+                    "render_passes": counts.get("render_passes", 0),
+                    "lpips_chunks": counts.get("lpips_chunks", 0),
+                    "lpips_chunk_images": counts.get("lpips_chunk_images",
+                                                     0)})
     return out
 
 

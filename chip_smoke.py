@@ -100,8 +100,11 @@
    seeded random-VGG fallback at lambda 1000, its convolutions in float32;
    one warm-up and 2 timed steps beside phase 6's, the split with an
    `lpips` mark, the peak memory. Checks a finite loss, no skipped step, a
-   non-zero LPIPS term, every group with a learning rate moved, and K1 ch7
-   = K2 = K3 = K4 = the row scatter = 16 launches per step, and the same
+   non-zero LPIPS term, every group with a learning rate moved, K1 ch7
+   = K2 = K3 = K4 = the row scatter = 16 launches per step, the fused
+   LPIPS kernels' launches per LPIPS call of the step (`lpips_want`: 18
+   epilogues, 8 epilogues with a pool, 5 heads, 5 tap VJPs; phase 6's
+   step launches none), and the same
    bits from one step computed twice (`step_spread`, LPIPS on). Then LPIPS
    in TF32 against
    float32 on one motion's 4 renders and their GT (`lpips_precision`):
@@ -113,6 +116,20 @@
 6c. One test-time fine-tuning step, `trainable_groups={"latent_code"}`,
    LPIPS on: only `latent.codes` moves, every other leaf stays bit-equal,
    ARAP reads 0.
+6d. The fused LPIPS kernels (`csrc/lpips_fused.cu`) at one LPIPS call of
+   the train step, 32 renders at 512^2 (`lpips_fused_phase`): layer by
+   layer on both towers' activations (biases drawn non-zero), every
+   epilogue and pool bit-equal to torch.relu(conv + bias) and max_pool2d,
+   each tap's head (distances and norms) and VJP within LPIPS_FUSED_REL of
+   their plain versions, each kernel twice the same bits; the same on
+   odd, tiny and wide shapes with ties and NaNs; the whole call, forward
+   and input VJP, against `lpips_plain` and twice bit-identical, its
+   launches (26 epilogues, 5 heads, 5 VJPs) and the recorder's
+   `lpips_epilogues` equal to `lpips_convs`; `lpips_plain` on the GT as
+   the step hands it (a channels-last view, cuDNN's NHWC route) within
+   LPIPS_LAYOUT_REL of it on that GT made contiguous; each kernel's ms beside its
+   plain version's and its bytes bound, and the call's ms and peak memory
+   against `lpips_plain` in turns.
    Then one LPIPS-on step inside `utils/diagnostics.profile_trace` (the
    trace under `build/profile_lpips_step/`), and the card's busy share of
    the step's window from the trace's kernel events.
@@ -246,7 +263,7 @@
    difference beside its limit (and, for information, the Gaussians whose
    KNN differs from the reference's, the 56 near-tie Gaussians among
    them) and fails on any excess; launches K1 ch7 = 19, K1 ch3 = 2, K2 =
-   21, K3 = K4 = the row scatter = 17. `python3 chip_smoke.py --phase
+   21, K3 = K4 = the row scatter = 17, and one LPIPS call's kernels. `python3 chip_smoke.py --phase
    reference` runs this phase alone after the build and keeps the card's
    outputs in `build/reference_card.npz` (a development run: no result
    line).
@@ -255,14 +272,16 @@
    the frames/s, and capacity 1024's delta against 4096; prints its line
    and the fps harness's frames/s beside it.
 13. Prints a summary line, a `kernels` JSON line (all nine kernels, K1 in
-   both channel variants and K8 in all three; `launches` of K1 ch7, K2, K3
-   and K4 and the row scatter from phase 6b, the main path, and each
+   both channel variants and K8 in all three, and the five fused LPIPS
+   kernels with phase 6d's times; `launches` of K1 ch7, K2, K3, K4, the
+   row scatter and the LPIPS kernels from phase 6b, the main path, and each
    kernel's launches in every phase-9 and phase-10 run), the card's name
    and power limit, and last the device line.
 
 Development runs that print and fail nothing, run alone after the build:
 `--phase determinism` (phase 6's and 6b's step spread, LPIPS's and SSIM's
-input gradients twice, phase 7b's twins), `--phase timing` (K4, K6 and
+input gradients twice, the fused LPIPS kernels each twice, phase 7b's
+twins), `--phase lpips` (phase 6d alone), `--phase timing` (K4, K6 and
 the row scatter's ms, the s2 step's ms LPIPS off and on) and `--phase
 parts` (K4, K6 and the row scatter on the card against the CPU's call,
 the row scatter's list lengths and its split by kernel, the sorted
@@ -328,6 +347,14 @@ TRAIN_START = 300              # depth/normal (> 200) and ARAP (< 2000) open
 # (the gradient, `models/lpips.py`), so float32 ships
 LPIPS_TF32_DIST_REL = 1e-2     # max over images of |d_tf32 - d_f32| / d_f32
 LPIPS_TF32_GRAD_REL_L2 = 5e-2  # the input gradient, relative L2
+LPIPS_CHUNK = 32               # renders in one LPIPS call at 512^2 (step.py)
+# the fused LPIPS kernels' heads and VJPs against their plain versions,
+# which sum in another order (phase 6d); epilogues and pools bit-equal
+LPIPS_FUSED_REL = 1e-6
+# `lpips_plain`'s input gradient on a channels-last GT (cuDNN's NHWC route
+# for the GT tower) against it on the GT made contiguous, the route the
+# fused call takes: relative L2 (4.1e-6 on the card, phase 6d)
+LPIPS_LAYOUT_REL = 1e-5
 # the trainer phase: stage lengths and the cadence that makes every event
 # of the schedule happen within them (see main's phase 7)
 S1_ITERS, S2_ITERS = 60, 10
@@ -1901,6 +1928,265 @@ def lpips_precision(img, gt) -> dict:
                          "flags_swapped_grad")}}
 
 
+def lpips_fused_checks(dev, n: int, width: int, gen) -> dict:
+    """The fused LPIPS kernels (`models/lpips.py`, `csrc/lpips_fused.cu`)
+    against their plain versions at one LPIPS call's shapes: n renders at
+    width^2 through the seeded VGG with biases drawn non-zero, layer by
+    layer on both towers' real activations. Each epilogue (and pool) must
+    be bit-equal to torch.relu(conv + bias) and max_pool2d, each head's
+    distances and norms within LPIPS_FUSED_REL relative, each tap VJP
+    within LPIPS_FUSED_REL relative L2 of `tap_vjp_plain`, and each kernel
+    run twice the same bits. Returns the kernels' and the plain versions'
+    ms (CUDA events, summed over the layers) and their bytes, the
+    epilogues without a pool (`epilogue_*`) apart from those with one
+    (`epilogue_pool_*`)."""
+    import torch
+    import torch.nn.functional as F
+    from dimo_tpu_torch.models import lpips as L
+    from dimo_tpu_torch.utils.general import cudnn_tf32
+
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    params = {k: v.to(dev) for k, v in L.seeded_lpips_params(0).items()}
+    for i in range(len(L._VGG_PLAN)):
+        b = params[f"conv{i}_b"]
+        params[f"conv{i}_b"] = (0.05 * torch.randn(b.shape, generator=gen)
+                                ).to(dev)
+    img = torch.rand((n, 3, width, width), generator=gen)
+    gt = (0.8 * img + 0.2 * torch.rand(img.shape, generator=gen)).to(dev)
+    shift, scale = L._constants(dev)
+    ha, hb = (img.to(dev) - shift) / scale, (gt - shift) / scale
+    out = {f"{k}_{m}": 0.0 for k in ("epilogue", "epilogue_pool", "head",
+                                     "vjp")
+           for m in ("ms", "plain_ms", "bytes")}
+    worst = {"head": 0.0, "norms": 0.0, "vjp": 0.0}
+    out["by_tap"] = []
+    with torch.no_grad():
+        for i in range(len(L._VGG_PLAN)):
+            w, b = params[f"conv{i}_w"], params[f"conv{i}_b"]
+            pool = i in L._POOLED
+            with cudnn_tf32(False):
+                ca, cb = F.conv2d(ha, w, padding=1), F.conv2d(hb, w, padding=1)
+            ref_y = torch.relu(ca + b[None, :, None, None])
+            ref_p = F.max_pool2d(ref_y, 2, 2) if pool else None
+            runs = [L.relu_pool(ca.clone(), b, pool) for _ in range(2)]
+            for y, p in runs:
+                if not same_bits(y, ref_y) or (pool and not same_bits(p, ref_p)):
+                    fail(f"lpips epilogue, layer {i}: not bit-equal to "
+                         "torch.relu(conv + bias) / max_pool2d")
+            del runs, ref_y, ref_p
+            scratch = ca.clone()         # both run in place over it
+            epi = "epilogue_pool" if pool else "epilogue"
+            out[f"{epi}_ms"] += 2 * cuda_ms(
+                lambda: L.relu_pool(scratch, b, pool), 3, warmup=1)
+            out[f"{epi}_plain_ms"] += 2 * cuda_ms(
+                lambda: L.relu_pool_plain(scratch, b, pool), 3, warmup=1)
+            del scratch
+            # both towers: the output read and written, the pool written
+            out[f"{epi}_bytes"] += 2 * (9 if pool else 8) * ca.numel()
+            ya, pa = L.relu_pool(ca, b, pool)
+            yb, pb = L.relu_pool(cb, b, pool)
+            if i in L._TAPS:
+                lin = params[f"lin{L._TAPS.index(i)}_w"]
+                ref = L.tap_head_plain(ya, yb, lin)
+                got = [L.tap_head(ya, yb, lin) for _ in range(2)]
+                for a, r in zip(got[0], ref):
+                    key = "head" if a.dim() == 1 else "norms"
+                    worst[key] = max(worst[key], float((a - r).abs().max()
+                                                       / r.abs().max()))
+                if not all(same_bits(a, c) for a, c in zip(*got)):
+                    fail(f"lpips head, layer {i}: two runs differ")
+                dist, na, nb = got[0]
+                gd = torch.rand((n,), generator=gen).to(dev)
+                gp = (torch.randn(pa.shape, generator=gen).to(dev) if pool
+                      else None)
+                ref_g = L.tap_vjp_plain(ya, yb, ref[1], ref[2], lin, gd, gp)
+                got_g = [L.tap_vjp(ya, yb, na, nb, lin, gd, gp)
+                         for _ in range(2)]
+                worst["vjp"] = max(worst["vjp"], rel_l2(got_g[0], ref_g))
+                if not same_bits(*got_g):
+                    fail(f"lpips tap VJP, layer {i}: two runs differ")
+                del ref, got, ref_g, got_g
+                head_ms = cuda_ms(lambda: L.tap_head(ya, yb, lin), 3,
+                                  warmup=1)
+                out["head_ms"] += head_ms
+                out["head_plain_ms"] += cuda_ms(
+                    lambda: L.tap_head_plain(ya, yb, lin), 3, warmup=1)
+                out["head_bytes"] += 8 * ya.numel() + 8 * na.numel()
+                vjp_ms = cuda_ms(
+                    lambda: L.tap_vjp(ya, yb, na, nb, lin, gd, gp), 3,
+                    warmup=1)
+                out["vjp_ms"] += vjp_ms
+                out["by_tap"].append(f"{tuple(ya.shape[1:])} head "
+                                     f"{head_ms:.2f} vjp {vjp_ms:.2f}")
+                out["vjp_plain_ms"] += cuda_ms(
+                    lambda: L.tap_vjp_plain(ya, yb, na, nb, lin, gd, gp), 3,
+                    warmup=1)
+                out["vjp_bytes"] += (12 * ya.numel() + 8 * na.numel()
+                                     + (4 * gp.numel() if pool else 0))
+            ha, hb = (pa, pb) if pool else (ya, yb)
+            del ca, cb
+    for k, v in worst.items():
+        if not v <= LPIPS_FUSED_REL:
+            fail(f"lpips {k}: {v:.3g} from its plain version "
+                 f"(limit {LPIPS_FUSED_REL:g})")
+    return {**out, **{f"worst_{k}": v for k, v in worst.items()}}
+
+
+def lpips_fused_edges(dev, gen) -> list[str]:
+    """The fused LPIPS kernels on shapes VGG's do not reach: odd and tiny
+    H and W (the pool's floor, the tiles' ragged edge), 3 and 600 channels
+    (one warp; channels past the registers read again), ties in every
+    window (quantised values) and NaNs. Epilogue and pool bit-equal, head
+    and VJP within LPIPS_FUSED_REL of their plain versions."""
+    import torch
+    from dimo_tpu_torch.models import lpips as L
+    lines = []
+    for n, c, h, w in ((2, 64, 37, 29), (3, 3, 5, 3), (1, 600, 9, 18),
+                       (2, 128, 3, 40), (2, 512, 32, 32)):
+        conv = torch.round(4 * torch.randn((n, c, h, w), generator=gen)) / 4
+        conv.view(-1)[::97] = float("nan")
+        conv = conv.to(dev)
+        b = (torch.round(4 * torch.randn((c,), generator=gen)) / 8).to(dev)
+        y_ref, p_ref = L.relu_pool_plain(conv.clone(), b, True)
+        y, p = L.relu_pool(conv.clone(), b, True)
+        y2, _ = L.relu_pool(conv.clone(), b, False)
+        ok = (torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
+              and torch.equal(p.view(torch.int32), p_ref.view(torch.int32))
+              and torch.equal(y2.view(torch.int32), y_ref.view(torch.int32)))
+        if not ok:
+            fail(f"lpips epilogue at {(n, c, h, w)}: not bit-equal")
+        # the head and the VJP on finite taps with ties
+        ya = torch.relu(torch.round(4 * torch.randn((n, c, h, w),
+                                                    generator=gen)) / 4)
+        yb = torch.relu(torch.randn((n, c, h, w), generator=gen))
+        ya, yb = ya.to(dev), yb.to(dev)
+        lin = torch.rand((c,), generator=gen).to(dev) / c
+        ref = L.tap_head_plain(ya, yb, lin)
+        got = L.tap_head(ya, yb, lin)
+        head = max(float((a - r).abs().max() / r.abs().max().clamp_min(
+            1e-30)) for a, r in zip(got, ref))
+        gd = torch.rand((n,), generator=gen).to(dev)
+        gp = torch.randn((n, c, h // 2, w // 2), generator=gen).to(dev)
+        # a pixel whose channels are all 0 has a NaN gradient in both
+        # (autograd's sqrt at 0); compare the rest
+        live = (ref[1] > 0).expand_as(ya)
+        vjp = []
+        for g in (gp, None):
+            r = L.tap_vjp_plain(ya, yb, ref[1], ref[2], lin, gd, g)
+            a = L.tap_vjp(ya, yb, got[1], got[2], lin, gd, g)
+            if not torch.equal(torch.isnan(a), torch.isnan(r)):
+                fail(f"lpips tap VJP at {(n, c, h, w)}: NaNs differ")
+            vjp.append(rel_l2(a[live], r[live]))
+        if not max(head, *vjp) <= LPIPS_FUSED_REL:
+            fail(f"lpips head / VJP at {(n, c, h, w)}: {head:.3g} / "
+                 f"{vjp} (limit {LPIPS_FUSED_REL:g})")
+        lines.append(f"{(n, c, h, w)} head {head:.2g} vjp {max(vjp):.2g}")
+    return lines
+
+
+def lpips_fused_phase(dev, n: int = LPIPS_CHUNK) -> dict:
+    """Phase 6d: `lpips_fused_checks` at one chunk of the train step (n
+    renders at 512^2), `lpips_fused_edges`, then the whole call, forward
+    and input VJP, on a GT laid out as the step hands it (a channels-last
+    view): fused twice the same bits, its launches (13 epilogues a tower,
+    5 heads, 5 VJPs), and against `lpips_plain` (today's composition under
+    autograd) on the same GT made contiguous (the fused call's own layout,
+    so both run the same convolutions): distances within LPIPS_FUSED_REL
+    relative, the input gradient within LPIPS_FUSED_REL relative L2. The
+    plain call on the channels-last GT (cuDNN's NHWC route for the GT
+    tower, as before this path) is printed beside it, and the two calls
+    are timed in turns on that GT."""
+    import torch
+    from dimo_tpu_torch.models import lpips as L
+    from dimo_tpu_torch.utils import diagnostics
+    gen = torch.Generator().manual_seed(23)
+    t0 = time.time()
+    res = lpips_fused_checks(dev, n, WIDTH, gen)
+    free_cached()
+    edges = lpips_fused_edges(dev, gen)
+    params = {k: v.to(dev) for k, v in L.seeded_lpips_params(0).items()}
+    img = torch.rand((n, 3, WIDTH, HEIGHT), generator=gen)
+    gt = (0.8 * img + 0.2 * torch.rand(img.shape, generator=gen)).to(dev)
+    gt_nhwc = gt.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    img = img.to(dev)
+
+    def call(fn, g_t):
+        x = img.clone().requires_grad_(True)
+        d = fn(params, x, g_t)
+        (g,) = torch.autograd.grad(torch.sum(d), x)
+        return d.detach(), g
+
+    zero_launch_counts()
+    with diagnostics.tracing(), diagnostics.span("step", 0):
+        fused = [call(L.lpips_fused, gt_nhwc)]
+    torch.cuda.synchronize()    # the span's events, read by step_totals
+    (counts,) = diagnostics.step_totals(1)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    fused.append(call(L.lpips_fused, gt_nhwc))
+    if launched != lpips_want(1):
+        fail(f"lpips launches in one call: {launched}, expected "
+             f"{lpips_want(1)}")
+    if not counts["lpips_epilogues"] == counts["lpips_convs"] == 26:
+        fail(f"lpips counters in one call: epilogues "
+             f"{counts['lpips_epilogues']}, convolutions "
+             f"{counts['lpips_convs']}, expected 26 each")
+    if not all(torch.equal(a, b) for a, b in zip(*fused)):
+        fail("the fused LPIPS call twice gave different bits")
+    plain = call(L.lpips_plain, gt)
+    dist_rel = float(((fused[0][0] - plain[0]).abs() / plain[0].abs()).max())
+    grad_rel = rel_l2(fused[0][1], plain[1])
+    if not max(dist_rel, grad_rel) <= LPIPS_FUSED_REL:
+        fail(f"fused LPIPS against lpips_plain: distances {dist_rel:.3g}, "
+             f"input gradient {grad_rel:.3g} (limit {LPIPS_FUSED_REL:g})")
+    plain_nhwc = call(L.lpips_plain, gt_nhwc)
+    layout = (float(((plain_nhwc[0] - plain[0]).abs()
+                     / plain[0].abs()).max()),
+              rel_l2(plain_nhwc[1], plain[1]))
+    if not max(layout) <= LPIPS_LAYOUT_REL:
+        fail(f"lpips_plain on the channels-last GT against it contiguous: "
+             f"distances {layout[0]:.3g}, input gradient {layout[1]:.3g} "
+             f"(limit {LPIPS_LAYOUT_REL:g})")
+    del fused, plain, plain_nhwc
+    free_cached()
+    turns = {"plain": [], "fused": []}
+    for name in ("plain", "fused", "fused", "plain"):
+        fn = L.lpips_plain if name == "plain" else L.lpips_fused
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: call(fn, gt_nhwc), 3, warmup=1)
+        turns[name].append((ms, torch.cuda.max_memory_allocated() / 2**30))
+    return {**res, "edges": edges, "dist_rel": dist_rel,
+            "grad_rel_l2": grad_rel, "layout": layout, "launches": launched,
+            "turns": turns, "seconds": time.time() - t0}
+
+
+def print_lpips_fused(r: dict) -> None:
+    def row(k):
+        return (f"{k} {r[k + '_ms']:.2f} ms (plain {r[k + '_plain_ms']:.2f}, "
+                f"bound {r[k + '_bytes'] / HBM_BW * 1e3:.2f} ms of "
+                f"{r[k + '_bytes'] / 1e9:.2f} GB)")
+    print(f"lpips fused kernels ({LPIPS_CHUNK} renders at {WIDTH}^2, both "
+          "towers' epilogues without and with a pool, the 5 heads and VJPs, "
+          "summed over the layers): " + "; ".join(
+              row(k) for k in ("epilogue", "epilogue_pool", "head", "vjp")))
+    print(f"lpips fused vs plain: epilogues and pools bit-equal; head "
+          f"{r['worst_head']:.3g}, norms {r['worst_norms']:.3g}, VJP "
+          f"{r['worst_vjp']:.3g} relative; each kernel twice bit-identical; "
+          f"edge shapes: {'; '.join(r['edges'])}; by tap (ms): "
+          + "; ".join(r["by_tap"]))
+    print(f"lpips call fused vs lpips_plain ({LPIPS_CHUNK} renders, forward "
+          f"+ input VJP): distances {r['dist_rel']:.3g}, gradient "
+          f"{r['grad_rel_l2']:.3g} relative L2 (plain on the channels-last "
+          f"GT against plain on it contiguous: {r['layout'][0]:.3g} / "
+          f"{r['layout'][1]:.3g}, limit {LPIPS_LAYOUT_REL:g}); launches "
+          f"{r['launches']}; "
+          "in turns on the channels-last GT (ms, peak GiB): " + ", ".join(
+              f"{k} {ms:.1f} / {gib:.2f}" for k in ("plain", "fused")
+              for ms, gib in r["turns"][k]) + f" ({r['seconds']:.1f} s)")
+
+
 def profiled_step(step_fn, state, batch, logdir: str) -> dict:
     """One train step inside `diagnostics.profile_trace`, marked by a
     `train_step` annotation that ends after a synchronize; the card's
@@ -2192,6 +2478,21 @@ def determinism_probe(dev) -> None:
         print(f"{name} input gradient twice: bit-identical "
               f"{torch.equal(*gs)}, max |a - b| "
               f"{float((gs[0] - gs[1]).abs().max()):.3g}")
+    from dimo_tpu_torch.models import lpips as L
+    # the fused kernels alone, each twice at the first tap's shapes
+    conv = torch.randn((4, 64, WIDTH, HEIGHT), generator=gen).to(dev)
+    bias = torch.randn((64,), generator=gen).to(dev)
+    (y, p), (y2, p2) = [L.relu_pool(conv.clone(), bias, True)
+                        for _ in range(2)]
+    yb = L.relu_pool(conv.flip(0).contiguous(), bias, False)[0]
+    lin = torch.rand((64,), generator=gen).to(dev)
+    (d, na, nb), (d2, na2, nb2) = [L.tap_head(y, yb, lin) for _ in range(2)]
+    gd, gp = torch.rand((4,), device=dev), torch.randn_like(p)
+    g, g2 = [L.tap_vjp(y, yb, na, nb, lin, gd, gp) for _ in range(2)]
+    print("LPIPS fused kernels twice: bit-identical epilogue "
+          f"{torch.equal(y, y2) and torch.equal(p, p2)}, head "
+          f"{torch.equal(d, d2) and torch.equal(na, na2)}, VJP "
+          f"{torch.equal(g, g2)}")
     del state, batch, params, aux
     free_cached()
     tw = twin_trainer_phase(
@@ -2463,13 +2764,47 @@ def launch_counts() -> dict:
     from dimo_tpu_torch.ops.rasterizer import gather as rg
     from dimo_tpu_torch.ops.rasterizer import composite_tiles as ct
     from dimo_tpu_torch.ops.rasterizer import windowdma as wd
+    from dimo_tpu_torch.models import lpips as L
     return {"K1 ch7": cs.launches["ch7"], "K1 ch3": cs.launches["ch3"],
             "K1 ch4": cs.launches["ch4"], "K2": sg.launches,
             "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
             "K5": sg.rows_launches, "K6": sg.rows_bwd_launches,
             "K7": wd.launches, "K8 ch7": ct.launches["ch7"],
             "K8 ch4": ct.launches["ch4"], "K8 ch3": ct.launches["ch3"],
-            "K9": ct.launches["bwd"], "row scatter": rg.launches}
+            "K9": ct.launches["bwd"], "row scatter": rg.launches,
+            **{LPIPS_COUNTERS[k]: v for k, v in L.launches.items()}}
+
+
+# the fused LPIPS kernels' launch counters (`models/lpips.py::launches`)
+# by the names of the kernels line
+LPIPS_COUNTERS = {"bias_relu": "LP relu", "bias_relu_pool": "LP relu pool",
+                  "tap_head": "LP head", "tap_vjp": "LP vjp"}
+
+
+def lpips_want(calls: int, vjps: int | None = None) -> dict:
+    """The fused LPIPS kernels' launches in `calls` calls of `lpips` on
+    the card, `vjps` of them (all by default) differentiated: per call
+    both towers' 13 epilogues (4 of each with a pool), 5 heads and 5 tap
+    VJPs."""
+    vjps = calls if vjps is None else vjps
+    want = {"LP relu": 18 * calls, "LP relu pool": 8 * calls,
+            "LP head": 5 * calls, "LP vjp": 5 * vjps}
+    return {k: v for k, v in want.items() if v}
+
+
+def lpips_calls_per_step(n_motions: int, per: int, side: int) -> int:
+    """LPIPS's calls in one train step of n_motions motions of `per`
+    renders at side^2: runs of whole consecutive motions of at most
+    `train/step.py::LPIPS_PIXELS` pixels (a motion over it alone)."""
+    from dimo_tpu_torch.train.step import LPIPS_PIXELS
+    cap = max(1, LPIPS_PIXELS // (side * side))
+    calls, held = 0, 0
+    for _ in range(n_motions):
+        if calls and held + per <= cap:
+            held += per
+        else:
+            calls, held = calls + 1, per
+    return calls
 
 
 def zero_launch_counts() -> None:
@@ -2482,6 +2817,8 @@ def zero_launch_counts() -> None:
     ct.launches = dict.fromkeys(ct.launches, 0)
     sg.launches = sg.bwd_launches = sg.rows_launches = sg.rows_bwd_launches = 0
     wd.launches = rg.launches = 0
+    from dimo_tpu_torch.models import lpips as L
+    L.launches = dict.fromkeys(L.launches, 0)
 
 
 def frames_close(got, ref, what: str) -> int:
@@ -3161,9 +3498,12 @@ def test_modes_phase(dev, root: str) -> dict:
     M, B = PHASE9_MOTIONS, (1 + min(bs, n_v - 1)) * min(bs, n_f)
     zero = dict.fromkeys(launch_counts(), 0)
 
-    def want(**kw):
-        return {**zero, **{k.replace("_", " "): v for k, v in kw.items()}}
+    def want(lpips_calls=0, **kw):
+        return {**zero, **lpips_want(lpips_calls),
+                **{k.replace("_", " "): v for k, v in kw.items()}}
 
+    # a fit's step renders one motion at 128^2: one LPIPS call
+    ft_calls = lpips_calls_per_step(1, B, 128)
     modes = [
         ("default", [], want(K1_ch7=2 * n_f * M, K2=n_f * M)),
         ("interpolation", ["test_interpolation=True"],
@@ -3176,13 +3516,15 @@ def test_modes_phase(dev, root: str) -> dict:
          want(K1_ch7=2 * n_f, K2=n_f)),
         ("test_motion", ["test_motion=True", f"test_motion_data={motion_dir}"],
          want(K1_ch7=B * FT_ITERS + 3 * n_f, K2=B * FT_ITERS + 2 * n_f,
-              K3=B * FT_ITERS, K4=B * FT_ITERS, row_scatter=B * FT_ITERS)),
+              K3=B * FT_ITERS, K4=B * FT_ITERS, row_scatter=B * FT_ITERS,
+              lpips_calls=ft_calls * FT_ITERS)),
         ("test_unaligned_motion", ["test_unaligned_motion=True",
                                    f"test_unaligned_motion_data={motion_dir}"],
          want(K1_ch7=B * (FT_ITERS_A + FT_ITERS_B) + n_f,
               K2=B * FT_ITERS_B + n_f, K3=B * (FT_ITERS_A + FT_ITERS_B),
               K4=B * FT_ITERS_B,
-              row_scatter=B * (FT_ITERS_A + FT_ITERS_B)))]
+              row_scatter=B * (FT_ITERS_A + FT_ITERS_B),
+              lpips_calls=ft_calls * FT_ITERS_B))]
     walls, launches, results = {}, {}, {}
     try:
         for mod, name, fn in patches:
@@ -3270,6 +3612,7 @@ def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
     from dimo_tpu_torch import cli
     from dimo_tpu_torch.io.config import load_config
     from dimo_tpu_torch.train import optim
+    from dimo_tpu_torch.train.loop import render_resolution_for_step
     walls, launches = {}, {}
     free_cached()
     mode_now[0] = "train"
@@ -3290,9 +3633,15 @@ def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
     walls["train"] = time.time() - t0
     launches["train"] = launch_counts()
     n1, n2 = TRAIN_CLI_ITERS
+    # every step of both stages runs LPIPS, at its step's resolution (each
+    # stage counts its steps from 1)
+    calls = sum(lpips_calls_per_step(
+        min(2 * tb, n_sm), per_step // min(2 * tb, n_sm),
+        render_resolution_for_step(step))
+        for step in (*range(1, n1 + 1), *range(1, n2 + 1)))
     expect = want(K1_ch7=per_step * (n1 + n2), K3=per_step * (n1 + n2),
                   K2=per_step * n2, K4=per_step * n2,
-                  row_scatter=per_step * (n1 + n2))
+                  row_scatter=per_step * (n1 + n2), lpips_calls=calls)
     if launches["train"] != expect:
         fail(f"phase 9 train CLI: launches {launches['train']}, expected {expect}")
     bad = [k for k, v in optim.named_leaves(tr.state.params).items()
@@ -3331,7 +3680,7 @@ def train_cli_runs(root: str, train_cfg: str, mode_now: list, want,
 # the frame twice a channel (its own strip lists, the reference's), the
 # VJP's render, the step's 16
 REFERENCE_LAUNCHES = {"K1 ch7": 19, "K1 ch3": 2, "K2": 21, "K3": 17,
-                      "K4": 17, "row scatter": 17}
+                      "K4": 17, "row scatter": 17, **lpips_want(1)}
 
 
 def reference_phase(dev, keep: dict | None = None) -> dict:
@@ -3470,6 +3819,7 @@ def main() -> None:
         from dimo_tpu_torch.train import optim
         from dimo_tpu_torch.train.step import (LossConfig, group_lrs,
                                                init_state, make_train_step)
+        from dimo_tpu_torch.models import lpips as L
         from dimo_tpu_torch.models.lpips import get_lpips, random_init_lpips
         import bench_torch
     except ImportError as e:
@@ -3512,6 +3862,12 @@ def main() -> None:
             **{f"{part}/{k}": v for part, d in keep.items()
                for k, v in d.items()})
         print(f"chip_smoke --phase reference: passed in "
+              f"{time.time() - t_start:.1f} s")
+        sys.exit(0)
+    if sys.argv[1:] == ["--phase", "lpips"]:
+        # phase 6d alone: no result line
+        print_lpips_fused(lpips_fused_phase(dev))
+        print(f"chip_smoke --phase lpips: passed in "
               f"{time.time() - t_start:.1f} s")
         sys.exit(0)
     if sys.argv[1:] == ["--phase", "10"]:
@@ -4013,9 +4369,10 @@ def main() -> None:
             fail(f"train step {i}: loss {float(m['loss'])}, nonfinite_grad "
                  f"{int(m['nonfinite_grad'])}")
     want = b * (1 + TRAIN_STEPS)
-    if any(v != want for v in train_launch.values()) or cs.launches["ch3"]:
-        fail(f"train launches {train_launch} (ch3 {cs.launches['ch3']}), "
-             f"expected {want} each")
+    if any(v != want for v in train_launch.values()) or cs.launches["ch3"] \
+            or any(L.launches.values()):
+        fail(f"train launches {train_launch} (ch3 {cs.launches['ch3']}, "
+             f"LPIPS {L.launches}), expected {want} each and no LPIPS")
     lrs = group_lrs(lcfg, state.step, "s2")
     after = optim.named_leaves(params)
     stuck = sorted({optim.leaf_group(k) for k, v in before.items()
@@ -4069,6 +4426,10 @@ def main() -> None:
     lp_launch = {"K1 ch7": cs.launches["ch7"], "K2": sg.launches,
                  "K3": cs.launches["bwd"], "K4": sg.bwd_launches,
                  "row scatter": rg.launches}
+    lp_fused = {k: v for k, v in launch_counts().items()
+                if k.startswith("LP ") and v}
+    lp_want = lpips_want((1 + TRAIN_STEPS)
+                         * lpips_calls_per_step(n_m, n_v * n_f, WIDTH))
     for i, m in enumerate(metrics_lp):
         if (not bool(torch.isfinite(m["loss"])) or int(m["nonfinite_grad"])
                 or not float(m["lpips"]) > 0):
@@ -4078,6 +4439,10 @@ def main() -> None:
     if any(v != want for v in lp_launch.values()) or cs.launches["ch3"]:
         fail(f"LPIPS train launches {lp_launch} (ch3 {cs.launches['ch3']}), "
              f"expected {want} each")
+    if lp_fused != lp_want:
+        fail(f"LPIPS train: fused LPIPS launches {lp_fused}, expected "
+             f"{lp_want}")
+    lp_launch.update(lp_fused)
     lrs = group_lrs(lcfg, state.step, "s2")
     after = optim.named_leaves(params)
     stuck = sorted({optim.leaf_group(k) for k, v in before.items()
@@ -4165,6 +4530,11 @@ def main() -> None:
           f"{float((after['latent.codes'] - before['latent.codes']).abs().max()):.3g}), "
           f"every other leaf bit-equal, arap {float(m_ft['arap'])}, loss "
           f"{float(m_ft['loss']):.5g}")
+
+    # --- 6d. the fused LPIPS kernels at one chunk's shapes -------------
+    lp6d = lpips_fused_phase(dev)
+    print_lpips_fused(lp6d)
+    free_cached()
 
     # --- profile: one LPIPS-on step under torch.profiler ----------------
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4465,6 +4835,29 @@ def main() -> None:
                 **{k: r[k] for k in ("k6_route", "bit_identical",
                                      "bit_equal_to_cpu", "grid") if k in r}}
 
+    def lpips_row(name: str, key: str, counter: str, line: str) -> dict:
+        """A fused LPIPS kernel: launches on the LPIPS-on step (phase 6b),
+        its ms, its plain version's and its bytes bound summed over one
+        32-render call's layers (phase 6d)."""
+        return {"name": name, "route": "cuda",
+                "source": "dimo_tpu_torch/csrc/lpips_fused.cu",
+                "replaces": f"none (port-only: dimo_tpu/models/lpips.py:"
+                            f"{line} is XLA's, no TPU kernel)",
+                "launches": lp_launch[counter],
+                "launches_no_lpips": train_launch.get(counter, 0),
+                "max_rel_err": (0.0 if key.startswith("epilogue")
+                                else lp6d[f"worst_{key}"]),
+                "ms": lp6d[f"{key}_ms"], "plain_ms": lp6d[f"{key}_plain_ms"],
+                **bound(0.0, lp6d[f"{key}_bytes"]), "library_ms": None}
+
+    head_sum = lpips_row("lpips_head_sum", "head", "LP head", "99")
+    head_sum.update(ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                    timed_with="lpips_tap_head")
+    rows += [lpips_row("lpips_bias_relu", "epilogue", "LP relu", "74"),
+             lpips_row("lpips_bias_relu_pool", "epilogue_pool",
+                       "LP relu pool", "63"),
+             lpips_row("lpips_tap_head", "head", "LP head", "96"), head_sum,
+             lpips_row("lpips_tap_vjp", "vjp", "LP vjp", "96")]
     for row in rows:
         if row["name"] in ("gather_small_cols_fwd", "gather_small_cols_bwd",
                            "gather_rows_bwd"):
@@ -4486,7 +4879,10 @@ def main() -> None:
                   "composite_tiles_fwd_ch7": "K8 ch7",
                   "composite_tiles_fwd_ch4": "K8 ch4",
                   "composite_tiles_fwd_ch3": "K8 ch3",
-                  "composite_tiles_bwd": "K9"}
+                  "composite_tiles_bwd": "K9", "lpips_bias_relu": "LP relu",
+                  "lpips_bias_relu_pool": "LP relu pool",
+                  "lpips_tap_head": "LP head", "lpips_head_sum": "LP head",
+                  "lpips_tap_vjp": "LP vjp"}
     for row in rows:
         if row["name"] not in counter_of:
             fail(f"kernels line: row {row['name']} has no launch counter")

@@ -227,8 +227,9 @@ def step_totals(n: int) -> list | None:
     step's spans of that name, summed}, with a card), "render_jobs" and
     "render_passes" (the jobs rendered and the passes that held them),
     "lpips_chunks" and "lpips_chunk_images" (LPIPS's calls, whole
-    motions each, and the images they held)}; None when fewer steps are
-    kept."""
+    motions each, and the images they held), "lpips_convs" and
+    "lpips_epilogues" (VGG convolutions run, and fused epilogues
+    launched)}; None when fewer steps are kept."""
     steps = RECORDER.completed_steps(n) if n else None
     if steps is None:
         return None
@@ -257,7 +258,9 @@ def step_totals(n: int) -> list | None:
                     "render_passes": counts.get("render_passes", 0),
                     "lpips_chunks": counts.get("lpips_chunks", 0),
                     "lpips_chunk_images": counts.get("lpips_chunk_images",
-                                                     0)})
+                                                     0),
+                    "lpips_convs": counts.get("lpips_convs", 0),
+                    "lpips_epilogues": counts.get("lpips_epilogues", 0)})
     return out
 
 
